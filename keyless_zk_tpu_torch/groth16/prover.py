@@ -1,0 +1,304 @@
+"""Groth16 prover (PyTorch): port of keyless_zk_tpu/groth16/prover.py.
+
+Per proof, on the prover's device:
+
+  1. upload the witness (n_vars, 16) limbs;
+  2. sum the scalars of duplicate table rows (`_merge_scalars`);
+  3. four MSMs over the witness (A, B1, C on G1; B2 on G2)   [ops/msm.py]
+  4. the h scalars (`_h_scalars`): coefficient-table evaluation into the
+     a|b vectors, c = a*b, one batched (3, n) iNTT -> coset shift -> NTT,
+     h = a*b - c, from_mont                                    [ops/ntt.py]
+  5. the H MSM;
+  6. decode the five results to affine (one batched inversion per group,
+     one readback each);
+
+then a host tail blinds with r, s (groth16.cpp:288-353).
+
+The polynomial phase runs in the reference's raw representation exactly as
+the JAX package does (coefficients pre-scaled by R^2 at load), so every
+intermediate equals the JAX package's bit for bit. The JAX package's
+compact witness upload (`_witness_to_device`) is not carried over: the
+witness goes up as dense (n_vars, 16) limbs after a check that every limb
+is below 2^16.
+
+On a CUDA device each phase of `prove` is timed with CUDA events into
+`phase_ms` (milliseconds, read after the proof's final readback).
+"""
+
+from __future__ import annotations
+
+import secrets
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..curves import ref_curve
+from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
+from ..fields import bn254
+from ..fields import torch_field as tf
+from ..fields.limbs import NUM_LIMBS
+from ..fields.torch_field import FR
+from ..ops.msm import msm
+from ..ops.ntt import NTTPlan
+from .zkey import ProvingKey
+
+
+@dataclass
+class Proof:
+    """Proof points in standard-form host ints, snarkjs shapes."""
+
+    pi_a: tuple
+    pi_b: tuple
+    pi_c: tuple
+
+    def to_json_dict(self) -> dict:
+        """snarkjs proof JSON (reference groth16.cpp:362-410)."""
+        return {
+            "pi_a": [str(self.pi_a[0]), str(self.pi_a[1]), "1"],
+            "pi_b": [
+                [str(self.pi_b[0][0]), str(self.pi_b[0][1])],
+                [str(self.pi_b[1][0]), str(self.pi_b[1][1])],
+                ["1", "0"],
+            ],
+            "pi_c": [str(self.pi_c[0]), str(self.pi_c[1]), "1"],
+            "protocol": "groth16",
+        }
+
+
+# Coefficient-table entries evaluated per pass: a 2^22-entry chunk holds
+# 256 MB of gathered witness rows, 256 MB of products and 1 GB of int64
+# cumsums on the card; the full keyless table (~42.7M entries) runs in 11.
+_COEF_CHUNK = 1 << 22
+
+# Window bits of the four witness MSMs. Their scalars are ~94% bit-valued,
+# so the stream length is nearly independent of c while the bucket tables
+# (and K6's walk over them) grow as ceil(254/c) * 2^(c-1): a narrower
+# window than the dense-optimal one. The H MSM's uniform scalars take
+# ops.msm.fused_window_bits.
+_SPARSE_C = 12
+
+
+def _dedup_point_table(x: np.ndarray, y: np.ndarray, inf: np.ndarray):
+    """Collapse duplicate rows of a point table (host numpy).
+
+    Two copies of one point adjacent in a bucket run would hit the P == Q
+    case the scan's mixed add skips (csrc/ec.cuh madd_core), so the prover sums
+    the duplicate rows' scalars instead (correct by bilinearity).
+
+    Returns ((ux, uy, uinf), merge) where merge is None when the table has
+    no duplicates, else (order, bounds, n_unique) host arrays for a sorted
+    segment-sum of scalars (out[k] = sum of scalars whose row maps to k).
+    """
+    n = inf.shape[0]
+    flat = np.concatenate(
+        [
+            np.ascontiguousarray(x).reshape(n, -1),
+            np.ascontiguousarray(y).reshape(n, -1),
+            inf.reshape(n, 1).astype(x.dtype),
+        ],
+        axis=1,
+    )
+    view = np.ascontiguousarray(flat).view([("", flat.dtype)] * flat.shape[1])
+    _, first_idx, inv = np.unique(view.ravel(), return_index=True, return_inverse=True)
+    n_unique = first_idx.shape[0]
+    if n_unique == n:
+        return (x, y, inf), None
+    order = np.argsort(inv, kind="stable").astype(np.int64)
+    seg = inv[order].astype(np.int64)
+    bounds = np.searchsorted(seg, np.arange(n_unique + 1)).astype(np.int64)
+    return (x[first_idx], y[first_idx], inf[first_idx]), (order, bounds, int(n_unique))
+
+
+def _sample_fr() -> int:
+    """Rejection-sample a uniform scalar < r (groth16.cpp:288-316)."""
+    while True:
+        v = int.from_bytes(secrets.token_bytes(32), "little") & ((1 << 254) - 1)
+        if v < bn254.R_SCALAR:
+            return v
+
+
+def _limbs(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(device)
+
+
+class Groth16Prover:
+    """Proving key resident on `device` + the prove pipeline.
+
+    Construct once per key, call :meth:`prove` per witness. After a proof,
+    `last_h` holds its h scalars (the MSM_H input, for checks such as the
+    discrete-log oracle) and, on a CUDA device, `phase_ms` its phase times."""
+
+    def __init__(self, pk: ProvingKey, device="cpu"):
+        if pk.q != bn254.Q or pk.r != bn254.R_SCALAR:
+            raise ValueError("zkey curve is not BN254")  # fullprover.cpp:154-158
+        self.pk = pk
+        self.device = torch.device(device)
+        self.domain_pow = (pk.domain_size - 1).bit_length()
+        if (1 << self.domain_pow) != pk.domain_size:
+            raise ValueError("domain size must be a power of two")
+        self.plan = NTTPlan(self.domain_pow, self.device)
+        self.phase_ms: dict[str, float] = {}
+        self.last_h: torch.Tensor | None = None
+        dev = self.device
+
+        def dedup_dev(x, y, inf):
+            (ux, uy, uinf), merge = _dedup_point_table(x, y, inf)
+            if merge is not None:
+                order, bounds, nu = merge
+                merge = (torch.from_numpy(order).to(dev), torch.from_numpy(bounds).to(dev), nu)
+            return (_limbs(ux, dev), _limbs(uy, dev), torch.from_numpy(np.asarray(uinf, bool)).to(dev)), merge
+
+        self.points_a, self._merge_a = dedup_dev(pk.points_a.x, pk.points_a.y, pk.points_a.inf)
+        self.points_b1, self._merge_b1 = dedup_dev(pk.points_b1.x, pk.points_b1.y, pk.points_b1.inf)
+        self.points_b2, self._merge_b2 = dedup_dev(pk.points_b2.x, pk.points_b2.y, pk.points_b2.inf)
+        # Front-pad C with nPublic+1 infinity rows: pointsC[i] pairs with
+        # wtns[i + nPublic + 1] (groth16.cpp:104-112), so row i pairs with w[i]
+        pad_c = pk.n_vars - pk.points_c.x.shape[0]
+        self.points_c, self._merge_c = dedup_dev(
+            np.pad(pk.points_c.x, [(pad_c, 0), (0, 0)]),
+            np.pad(pk.points_c.y, [(pad_c, 0), (0, 0)]),
+            np.pad(pk.points_c.inf, [(pad_c, 0)], constant_values=True),
+        )
+        self.points_h, self._merge_h = dedup_dev(pk.points_h.x, pk.points_h.y, pk.points_h.inf)
+
+        # Coefficient table sorted by destination row once (host); per proof
+        # it streams through in _COEF_CHUNK slices, each reduced by a sorted
+        # segment sum (cumsum + boundary gather) into its row range.
+        dest = pk.coef_m.astype(np.int64) * pk.domain_size + pk.coef_c
+        nnz = dest.shape[0]
+        order = np.argsort(dest, kind="stable")
+        dest = dest[order]
+        if nnz:
+            seg_max = int(np.diff(np.searchsorted(dest, np.arange(2 * pk.domain_size + 1))).max())
+            if seg_max >= (1 << 23):
+                raise ValueError("coefficient row too dense for 8-bit split sums")
+        chunk = min(_COEF_CHUNK, max(nnz, 1))
+        k = -(-nnz // chunk) or 1
+        pad = k * chunk - nnz
+        # pad with zero-value terms aimed at the last row (keeps ids sorted)
+        s_sorted = np.pad(pk.coef_s[order].astype(np.int64), (0, pad))
+        d_sorted = np.pad(dest, (0, pad), constant_values=2 * pk.domain_size - 1)
+        self.coef_s = torch.from_numpy(s_sorted.reshape(k, chunk)).to(dev)
+        self._coef_chunks = []
+        for ci in range(k):
+            dk = d_sorted[ci * chunk : (ci + 1) * chunk]
+            d_lo, d_hi = int(dk[0]), int(dk[-1])
+            bounds = np.searchsorted(dk, np.arange(d_lo, d_hi + 2)).astype(np.int64)
+            self._coef_chunks.append((d_lo, torch.from_numpy(bounds).to(dev)))
+        # pre-scale the Montgomery-stored coefficients by R^2: the reduction's
+        # trailing REDC then lands values in the reference's representation
+        r2 = tf.consts(FR, FR.r2_mod_p, (), dev)
+        self.coef_val = torch.empty((k, chunk, NUM_LIMBS), dtype=torch.int32, device=dev)
+        for ci in range(k):
+            rows = pk.coef_val[order[ci * chunk : (ci + 1) * chunk]]
+            rows = np.pad(rows, [(0, chunk - rows.shape[0]), (0, 0)])
+            self.coef_val[ci] = tf.mont_mul(_limbs(rows, dev), r2, FR)
+        self.coset = self.plan.coset_powers()
+
+    # ---- device phases -------------------------------------------------
+
+    @staticmethod
+    def _merge_scalars(scalars: torch.Tensor, merge) -> torch.Tensor:
+        """Sum the scalars of duplicate table rows (see _dedup_point_table).
+        Lifting to Montgomery form first cancels the segment sum's REDC:
+        sum(w*R) * R^-1 = sum(w) mod r."""
+        if merge is None:
+            return scalars
+        order, bounds, _ = merge
+        vals = tf.to_mont(scalars.index_select(0, order), FR)
+        return tf.sorted_segment_sum_mod(vals, bounds, FR)
+
+    def _eval_ab(self, witness: torch.Tensor) -> torch.Tensor:
+        """witness -> concatenated a|b evaluation vectors (2*domain, 16)
+        (replaces the reference's 1024-spinlock scatter, groth16.cpp:135-156)."""
+        m2 = 2 * self.pk.domain_size
+        dev = witness.device
+        acc_lo = torch.zeros((m2, NUM_LIMBS), dtype=torch.int64, device=dev)
+        acc_hi = torch.zeros((m2, NUM_LIMBS), dtype=torch.int64, device=dev)
+        for ci, (d_lo, bounds) in enumerate(self._coef_chunks):
+            av = tf.mont_mul(witness.index_select(0, self.coef_s[ci]), self.coef_val[ci], FR)
+            lo, hi = tf.split8(av)
+            del av
+            w = bounds.shape[0] - 1
+            acc_lo[d_lo : d_lo + w] += tf.segment_diffs(lo, bounds)
+            acc_hi[d_lo : d_lo + w] += tf.segment_diffs(hi, bounds)
+        return tf.fold_split8_mod(acc_lo, acc_hi, FR)
+
+    def _h_scalars(self, witness: torch.Tensor) -> torch.Tensor:
+        """Witness -> MSM_H scalar vector (the NTT phase), on the device."""
+        n = self.pk.domain_size
+        ab = self._eval_ab(witness)
+        a, b = ab[:n], ab[n:]
+        c = tf.mont_mul(a, b, FR)
+        # one batched (3, n, 16) iNTT -> coset shift -> NTT sweep
+        abc = self.plan.intt(torch.stack([a, b, c]))
+        abc = tf.mont_mul(abc, self.coset, FR)  # shift: groth16.cpp:182-190
+        abc = self.plan.ntt(abc)
+        h = tf.sub(tf.mont_mul(abc[0], abc[1], FR), abc[2], FR)
+        return tf.from_mont(h, FR)  # groth16.cpp:264-279
+
+    # ---- full prove ------------------------------------------------------
+
+    def prove(self, witness_limbs: np.ndarray, r: int | None = None, s: int | None = None) -> Proof:
+        """witness_limbs: (nVars, 16) standard-form 16-bit limb rows."""
+        pk = self.pk
+        wl = np.asarray(witness_limbs)
+        if wl.shape != (pk.n_vars, NUM_LIMBS):
+            raise ValueError(f"witness shape {wl.shape} != ({pk.n_vars}, {NUM_LIMBS})")
+        if wl.size and (wl.min() < 0 or wl.max() >= (1 << 16)):
+            raise ValueError("witness limbs must lie in [0, 2^16)")
+
+        marks = []
+        timed = self.device.type == "cuda"
+
+        def mark(name):
+            if timed:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((name, ev))
+
+        mark("start")
+        w = _limbs(wl, self.device)
+        mark("upload")
+        wa = self._merge_scalars(w, self._merge_a)
+        wb1 = self._merge_scalars(w, self._merge_b1)
+        wb2 = self._merge_scalars(w, self._merge_b2)
+        wc = self._merge_scalars(w, self._merge_c)
+        mark("merges")
+        msm_a = msm(*self.points_a, wa, curve=G1_CURVE, c=_SPARSE_C)
+        mark("msm_a")
+        msm_b1 = msm(*self.points_b1, wb1, curve=G1_CURVE, c=_SPARSE_C)
+        mark("msm_b1")
+        msm_b2 = msm(*self.points_b2, wb2, curve=G2_CURVE, c=_SPARSE_C)
+        mark("msm_b2")
+        # the public rows of the padded C table are infinity
+        msm_c = msm(*self.points_c, wc, curve=G1_CURVE, c=_SPARSE_C)
+        mark("msm_c")
+        h = self._h_scalars(w)
+        self.last_h = h
+        mark("h_scalars")
+        msm_h = msm(*self.points_h, self._merge_scalars(h, self._merge_h), curve=G1_CURVE)
+        mark("msm_h")
+        g1_batch = JacPoint(*(torch.stack(cs) for cs in zip(msm_a, msm_b1, msm_c, msm_h)))
+        a_pt, b1_pt, c_pt, h_pt = G1_CURVE.decode_jacobian(g1_batch)
+        b2_pt = G2_CURVE.decode_jacobian(JacPoint(*(v[None] for v in msm_b2)))[0]
+        mark("decode")
+        if timed:
+            marks[-1][1].synchronize()
+            self.phase_ms = {
+                name: prev.elapsed_time(ev) for (_, prev), (name, ev) in zip(marks, marks[1:])
+            }
+
+        # host tail: blinding and final point assembly (groth16.cpp:288-353)
+        r = _sample_fr() if r is None else r
+        s = _sample_fr() if s is None else s
+        g1, g2 = ref_curve.G1, ref_curve.G2
+        pi_a = g1.add(g1.add(a_pt, pk.vk_alpha1), g1.mul(pk.vk_delta1, r))
+        pi_b = g2.add(g2.add(b2_pt, pk.vk_beta2), g2.mul(pk.vk_delta2, s))
+        pib1 = g1.add(g1.add(b1_pt, pk.vk_beta1), g1.mul(pk.vk_delta1, s))
+        pi_c = g1.add(c_pt, h_pt)
+        pi_c = g1.add(pi_c, g1.mul(pi_a, s))
+        pi_c = g1.add(pi_c, g1.mul(pib1, r))
+        pi_c = g1.add(pi_c, g1.neg(g1.mul(pk.vk_delta1, (r * s) % bn254.R_SCALAR)))
+        return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)

@@ -1,0 +1,241 @@
+"""Synthetic inputs: random points and scalars, and a proving key of the
+keyless circuit's published shapes with known discrete logs.
+
+Port of keyless_zk_tpu/ops/testgen.py (`random_points`, `random_scalars`)
+plus `synthetic_key`, which the full-width run uses: the keyless circuit
+cannot be built or set up without the JAX package, so its key is replaced
+by one of the same sizes whose every point is k*G for a known random k.
+A proof under such a key can be checked without a pairing: each of
+pi_a, pi_b, pi_c must equal the generator times a scalar the host computes
+from the discrete logs, the witness, r, s and the h scalars
+(`expected_proof`).
+
+Points come from a windowed fixed-base ladder: a host table of
+d * 2^(8j) * G (j < 32, d < 256), then 32 batched complete mixed adds
+through the port's group law, then one batched inversion to affine. The
+discrete logs are uniform-ish 254-bit values below r (top limb drawn below
+r's), so partial bucket sums never meet a table point: the MSM scan's
+precondition (no P == Q inside a bucket run) holds on these tables.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..curves import ref_curve
+from ..curves.jacobian import G1_CURVE, G2_CURVE, JacobianCurve
+from ..fields import bn254
+from ..fields.limbs import NUM_LIMBS, ints_to_limbs, limbs_to_ints
+from ..fields.torch_field import FR
+from ..groth16.zkey import G1Table, G2Table, ProvingKey
+
+R = bn254.R_SCALAR
+
+# points per ladder pass: bounds the group law's int64 temporaries on the card
+_GEN_CHUNK = 1 << 20
+
+# the full keyless circuit (BASELINE.md of the JAX package; prover.py there)
+KEYLESS_SHAPE = dict(
+    n_vars=1_377_553,
+    n_public=1,
+    domain_pow=21,
+    n_distinct_a=1_194_986,
+    n_distinct_b=796_854,
+    n_coefs=42_700_000,
+)
+
+
+@functools.lru_cache(maxsize=4)
+def _ladder_table_host(g2: bool):
+    """[d * 2^(8j) * G for j < 32 for d < 256] as host affine points."""
+    grp, gen = (ref_curve.G2, ref_curve.G2_GEN) if g2 else (ref_curve.G1, ref_curve.G1_GEN)
+    out = []
+    base = gen
+    for _ in range(32):
+        row = [None]
+        for _ in range(255):
+            row.append(grp.add(row[-1], base))
+        out.extend(row)
+        base = grp.add(row[-1], base)  # 256 * base
+    return out
+
+
+def fixed_base_points(k_limbs: torch.Tensor, curve: JacobianCurve):
+    """k_i * G for standard-form scalar limbs (n, 16) on any device ->
+    affine (x, y, inf) on that device."""
+    dev = k_limbs.device
+    tx, ty, tinf = curve.encode_affine(_ladder_table_host(curve is G2_CURVE), device=dev)
+    xs, ys, infs = [], [], []
+    for s in range(0, k_limbs.shape[0], _GEN_CHUNK):
+        k = k_limbs[s : s + _GEN_CHUNK].long()
+        acc = curve.infinity((k.shape[0],), dev)
+        for j in range(32):
+            byte = (k[:, j // 2] >> (8 * (j % 2))) & 0xFF
+            idx = j * 256 + byte
+            acc = curve.add_mixed(acc, tx[idx], ty[idx], tinf[idx])
+        x, y, inf = curve.to_affine(acc)
+        xs.append(x)
+        ys.append(y)
+        infs.append(inf)
+    return torch.cat(xs), torch.cat(ys), torch.cat(infs)
+
+
+def _random_below_r(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(n, 16) uint32 limbs of random values < r (top limb below r's)."""
+    limbs = rng.integers(0, 1 << 16, size=(n, NUM_LIMBS), dtype=np.uint32)
+    limbs[:, -1] = rng.integers(0, R >> 240, size=n, dtype=np.uint32)
+    return limbs
+
+
+def random_points(n: int, seed: int = 0, curve: JacobianCurve | None = None, device="cpu"):
+    """n random affine points k_i * G, k_i random below r: (x, y, inf)."""
+    curve = curve or G1_CURVE
+    k = _random_below_r(np.random.default_rng(seed), n)
+    return fixed_base_points(torch.from_numpy(k.astype(np.int32)).to(device), curve)
+
+
+def random_scalars(n: int, seed: int = 1, device="cpu") -> torch.Tensor:
+    """Uniform [0, r) scalars as (n, 16) int32 limbs; the same values as the
+    JAX package's random_scalars for the same seed."""
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)]
+    return torch.from_numpy(ints_to_limbs(vals).astype(np.int32)).to(device)
+
+
+# ---- a keyless-shape key with known discrete logs -----------------------------
+
+@dataclass
+class SyntheticKey:
+    pk: ProvingKey
+    witness: np.ndarray  # (n_vars, 16) uint32
+    dlog_a: list  # per table row; 0 for infinity rows
+    dlog_b: list  # shared by B1 and B2
+    dlog_c: list
+    dlog_h: list
+    alpha: int
+    beta: int
+    delta: int
+
+
+def _table_rows(rng, n_rows: int, n_distinct: int, n_inf: int):
+    """Row -> distinct-point index map: n_distinct distinct rows, n_inf
+    infinity rows (-1), the rest duplicates of distinct rows, shuffled."""
+    src = np.concatenate([
+        np.arange(n_distinct),
+        np.full(n_inf, -1),
+        rng.integers(0, n_distinct, n_rows - n_distinct - n_inf),
+    ])
+    return rng.permutation(src)
+
+
+def _witness(rng, n_vars: int) -> np.ndarray:
+    """w[0] = 1; ~94% bit-valued wires, most of the rest < 2^16, a few full."""
+    w = np.zeros((n_vars, NUM_LIMBS), np.uint32)
+    kind = rng.random(n_vars)
+    w[:, 0] = rng.integers(0, 2, n_vars)
+    small = kind >= 0.94
+    w[small, 0] = rng.integers(0, 1 << 16, int(small.sum()))
+    full = kind >= 0.994
+    w[full] = _random_below_r(rng, int(full.sum()))
+    w[0] = 0
+    w[0, 0] = 1
+    return w
+
+
+def synthetic_key(
+    seed: int,
+    *,
+    n_vars: int,
+    n_public: int,
+    domain_pow: int,
+    n_distinct_a: int,
+    n_distinct_b: int,
+    n_coefs: int,
+    device="cpu",
+) -> SyntheticKey:
+    """A proving key with random tables of the given shapes and known dlogs,
+    plus a witness of keyless shape. Points are built on `device`."""
+    rng = np.random.default_rng(seed)
+    n = 1 << domain_pow
+    alpha, beta, gamma, delta = (int(v) for v in limbs_to_ints(_random_below_r(rng, 4)))
+    g1, g2 = ref_curve.G1, ref_curve.G2
+    G1g, G2g = ref_curve.G1_GEN, ref_curve.G2_GEN
+
+    rows_a = _table_rows(rng, n_vars, n_distinct_a, 0)
+    # B: the distinct triples include the infinity row; most absent wires
+    # are infinity, the remaining rows duplicate
+    n_inf_b = (n_vars - n_distinct_b + 1) * 4 // 5
+    rows_b = _table_rows(rng, n_vars, n_distinct_b - 1, n_inf_b)
+    n_c = n_vars - n_public - 1
+
+    ka = _random_below_r(rng, n_distinct_a)
+    kb = _random_below_r(rng, n_distinct_b - 1)
+    kc = _random_below_r(rng, n_c)
+    kh = _random_below_r(rng, n)
+
+    def g1_table(k, rows=None):
+        x, y, inf = (t.cpu().numpy() for t in fixed_base_points(torch.from_numpy(k.astype(np.int32)).to(device), G1_CURVE))
+        if rows is not None:
+            x, y, inf = x[rows], y[rows], inf[rows]
+            x[rows < 0] = 0
+            y[rows < 0] = 0
+            inf = inf | (rows < 0)
+        return G1Table(x.astype(np.uint32), y.astype(np.uint32), inf)
+
+    kb_t = torch.from_numpy(kb.astype(np.int32)).to(device)
+    b2x, b2y, b2inf = (t.cpu().numpy() for t in fixed_base_points(kb_t, G2_CURVE))
+    b2x, b2y, b2inf = b2x[rows_b], b2y[rows_b], b2inf[rows_b] | (rows_b < 0)
+    b2x[rows_b < 0] = 0
+    b2y[rows_b < 0] = 0
+
+    coef_c = rng.integers(0, n, n_coefs, dtype=np.uint32)
+    coef_m = rng.integers(0, 2, n_coefs, dtype=np.uint32)
+    coef_s = rng.integers(0, n_vars, n_coefs, dtype=np.uint32)
+    pk = ProvingKey(
+        n8q=32, n8r=32, q=bn254.Q, r=R,
+        n_vars=n_vars, n_public=n_public, domain_size=n, n_coefs=n_coefs,
+        vk_alpha1=g1.mul(G1g, alpha), vk_beta1=g1.mul(G1g, beta), vk_beta2=g2.mul(G2g, beta),
+        vk_gamma2=g2.mul(G2g, gamma), vk_delta1=g1.mul(G1g, delta), vk_delta2=g2.mul(G2g, delta),
+        coef_m=coef_m, coef_c=coef_c, coef_s=coef_s, coef_val=_random_below_r(rng, n_coefs),
+        points_a=g1_table(ka, rows_a),
+        points_b1=g1_table(kb, rows_b),
+        points_b2=G2Table(b2x.astype(np.uint32), b2y.astype(np.uint32), b2inf),
+        points_c=g1_table(kc),
+        points_h=g1_table(kh),
+    )
+
+    def per_row(k, rows):
+        ints = limbs_to_ints(k)
+        return [0 if i < 0 else ints[i] for i in rows]
+
+    return SyntheticKey(
+        pk=pk,
+        witness=_witness(rng, n_vars),
+        dlog_a=per_row(ka, rows_a),
+        dlog_b=per_row(kb, rows_b),
+        dlog_c=limbs_to_ints(kc),
+        dlog_h=limbs_to_ints(kh),
+        alpha=alpha,
+        beta=beta,
+        delta=delta,
+    )
+
+
+def _dot(ws: list, ks: list) -> int:
+    return sum(w * k for w, k in zip(ws, ks) if w) % R
+
+
+def expected_proof(key: SyntheticKey, h: list, r: int, s: int):
+    """(pi_a, pi_b, pi_c) the prover must return for key.witness, blinding
+    (r, s) and h scalars `h`, from the key's discrete logs alone."""
+    w = limbs_to_ints(key.witness)
+    pad = key.pk.n_vars - len(key.dlog_c)
+    a = (_dot(w, key.dlog_a) + key.alpha + r * key.delta) % R
+    b = (_dot(w, key.dlog_b) + key.beta + s * key.delta) % R
+    c = (_dot(w[pad:], key.dlog_c) + _dot(h, key.dlog_h) + s * a + r * b - r * s * key.delta) % R
+    g1, g2 = ref_curve.G1, ref_curve.G2
+    return g1.mul(ref_curve.G1_GEN, a), g2.mul(ref_curve.G2_GEN, b), g1.mul(ref_curve.G1_GEN, c)

@@ -1,0 +1,163 @@
+"""Plain versions of the port's MSM kernels (K4-K7) against their JAX
+contracts, keyless_zk_tpu/ops/msm_sim.py.
+
+On a CPU tensor each kernel wrapper runs its plain version, which is what
+these tests call. The port's layouts at the kernel boundary (lane-contiguous
+(3R, ...) planes, a point table gathered inside the scan) differ from the
+TPU's (8, V/8) tiles; the tests convert. K4, K5 and K7 add in the contract's
+order and agree bit for bit; K6 follows its CUDA kernel's schedule and
+agrees as affine points.
+
+G1 runs every contract here; the G2 cases call the same checks from
+test_torch_msm_kernels_g2.py (K4, K7), test_torch_msm_merge_g2.py (K5) and
+test_torch_msm_reduce_g2.py (K6).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from keyless_zk_tpu.ops import msm_sim
+from keyless_zk_tpu_torch.curves.jacobian import JacPoint
+from keyless_zk_tpu_torch.ops import cuda_msm
+from torch_fixtures import GROUPS, points_with_dlogs
+
+torch.set_num_threads(1)
+
+
+def _u32(t):
+    return jnp.asarray(t.numpy().astype(np.uint32))
+
+
+def _eq(j, t):
+    return np.array_equal(np.asarray(j).astype(np.int64), t.numpy().astype(np.int64))
+
+
+def _table(tag, rng, n_pts):
+    """(n+1, 2R) x||y table with some infinity rows and a sentinel row."""
+    curve = cuda_msm.curve_for(tag)
+    R = cuda_msm.rows_for(tag)
+    pts, _ = points_with_dlogs(tag, n_pts, rng)
+    pts[3] = None
+    x, y, inf = curve.encode_affine(pts)
+    table = torch.cat([x.reshape(n_pts, R), y.reshape(n_pts, R)], 1)
+    table = torch.cat([table, torch.zeros((1, 2 * R), dtype=torch.int32)]).contiguous()
+    tinf = torch.cat([inf, torch.ones(1, dtype=torch.bool)])
+    return table, tinf
+
+
+def _planes(tag, table, tinf, idx):
+    """Table rows idx -> (3R, m) Jacobian planes (z = 1, or 0 at infinity)."""
+    curve = cuda_msm.curve_for(tag)
+    R = cuda_msm.rows_for(tag)
+    m = idx.shape[0]
+    z = curve.ops.select(tinf[idx], curve.ops.zeros((m,)), curve.ops.const(1, (m,)))
+    p = JacPoint(cuda_msm.rows_to_coord(table[idx, :R], tag), cuda_msm.rows_to_coord(table[idx, R:], tag), z)
+    return cuda_msm.point_to_planes(p, tag)
+
+
+def check_window_scan(tag):
+    rng = np.random.default_rng(1)
+    R = cuda_msm.rows_for(tag)
+    V, L, n_pts = 16, 6, 40
+    table, tinf = _table(tag, rng, n_pts)
+    fb = np.cumsum(rng.random(V * L) < 0.4).astype(np.int32)  # sorted bucket ids
+    fb[V * L // 2 :] += 3
+    idx = rng.integers(0, n_pts + 1, V * L).astype(np.int32)
+    neg = (rng.random(V * L) < 0.5).astype(np.int32)
+    keys = torch.from_numpy(fb.reshape(V, L).T.copy())
+    pay = torch.from_numpy((idx | (neg << 30)).reshape(V, L).T.copy())
+    emit, hk, hpt, tk, tpt = cuda_msm.window_scan(tag, keys, pay, table, tinf)
+
+    ord_sm = torch.from_numpy(idx.reshape(V, L).T.copy()).long()
+    g = table[ord_sm]  # (L, V, 2R)
+    flags = tinf[ord_sm].int() | (torch.from_numpy(neg.reshape(V, L).T.copy()) << 1)
+    shape = (L, 8, V // 8)
+    px = torch.movedim(g[..., :R], -1, 0).reshape(R, *shape)
+    py = torch.movedim(g[..., R:], -1, 0).reshape(R, *shape)
+    out = msm_sim.window_scan(
+        tag, jnp.asarray(keys.numpy().reshape(shape)), jnp.asarray(flags.numpy().reshape(shape)),
+        _u32(px), _u32(py), V=V,
+    )
+    ex, ey, ez, jhk, hx, hy, hz, jtk, tx, ty, tz = out
+    for i, e in enumerate((ex, ey, ez)):
+        assert _eq(e, emit[i * R : (i + 1) * R].reshape(R, *shape))
+    for i, e in enumerate((hx, hy, hz)):
+        assert _eq(e, hpt[i * R : (i + 1) * R].reshape(R, 1, 8, V // 8))
+    for i, e in enumerate((tx, ty, tz)):
+        assert _eq(e, tpt[i * R : (i + 1) * R].reshape(R, 1, 8, V // 8))
+    assert _eq(jhk, hk.reshape(1, 8, V // 8)) and _eq(jtk, tk.reshape(1, 8, V // 8))
+
+
+def check_boundary_merge(tag):
+    rng = np.random.default_rng(2)
+    R = cuda_msm.rows_for(tag)
+    m, n_pts = 32, 24
+    table, tinf = _table(tag, rng, n_pts)
+    keys = np.maximum.accumulate(np.cumsum(rng.random(m) < 0.3)).astype(np.int32)
+    keys[:3] = -1  # cummax-filled sentinels lead the sequence
+    pts = _planes(tag, table, tinf, torch.from_numpy(rng.integers(0, n_pts + 1, m)))
+    for steps in (2, 5):
+        got = cuda_msm.boundary_merge(tag, torch.from_numpy(keys), pts, steps)
+        want = msm_sim.boundary_merge(
+            tag, jnp.asarray(keys[None]), *(_u32(pts[i * R : (i + 1) * R][None]) for i in range(3)),
+            max_steps=jnp.int32(steps),
+        )
+        for i in range(3):
+            assert _eq(want[i][0], got[i * R : (i + 1) * R])
+
+
+def check_weighted_bucket_total(tag):
+    rng = np.random.default_rng(3)
+    R = cuda_msm.rows_for(tag)
+    curve = cuda_msm.curve_for(tag)
+    # 129 buckets: four lanes per window (bucket_threads), so the lane
+    # split, the lo * (running sum) double-and-add and the halving tree all
+    # run; the last lane holds 30 buckets, the others 33 each
+    wn, nb = 2, 129
+    assert cuda_msm.bucket_threads(tag, nb) == 4
+    pts, dlogs = points_with_dlogs(tag, wn * nb, rng)
+    x, y, inf = curve.encode_affine(pts)
+    p = curve.from_affine(x, y, inf)
+    tbl = cuda_msm.point_to_planes(p, tag).reshape(3 * R, wn, nb)
+    got = cuda_msm.weighted_bucket_total(tag, tbl)
+    want = msm_sim.weighted_bucket_total(tag, *(_u32(tbl[i * R : (i + 1) * R].permute(1, 0, 2)) for i in range(3)))
+    want_pt = JacPoint(*(cuda_msm.rows_to_coord(torch.from_numpy(np.asarray(w).astype(np.int32)), tag) for w in want))
+    dec = curve.decode_jacobian(cuda_msm.planes_to_point(got, tag))
+    assert dec == curve.decode_jacobian(want_pt)
+    group, gen = GROUPS[tag]
+    for w in range(wn):
+        k = sum(b * dlogs[w * nb + b] for b in range(nb))
+        assert dec[w] == group.mul(gen, k)
+
+
+def check_horner_total(tag):
+    rng = np.random.default_rng(4)
+    R = cuda_msm.rows_for(tag)
+    wn, c = 5, 4
+    table, tinf = _table(tag, rng, 8)
+    wins = _planes(tag, table, tinf, torch.from_numpy(rng.integers(0, 9, wn)))
+    got = cuda_msm.horner_total(tag, wins, c)
+    want = msm_sim.horner_total(tag, *(_u32(wins[i * R : (i + 1) * R].T) for i in range(3)), c)
+    for i in range(3):
+        assert _eq(want[i], got[i * R : (i + 1) * R])
+
+
+def test_window_scan_matches_contract():
+    check_window_scan("fq")
+
+
+@pytest.mark.parametrize("tag", ["fq"])
+def test_boundary_merge_matches_contract(tag):
+    check_boundary_merge(tag)
+
+
+@pytest.mark.parametrize("tag", ["fq"])
+def test_weighted_bucket_total_matches_contract(tag):
+    check_weighted_bucket_total(tag)
+
+
+def test_horner_total_matches_contract():
+    check_horner_total("fq")
