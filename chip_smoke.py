@@ -12,20 +12,33 @@ Phases, in order; any failure exits non-zero:
 3. the Montgomery product kernel (K1) against its plain PyTorch version on
    the card, Fr and Fq at 2^22 elements with the main path's broadcasts,
    with both times (exact integers: they must be equal);
-4. a small proof (synthetic key at domain 2^12) on the card and on the CPU
-   through the plain versions, with the same r and s: the proofs must be
-   equal, and equal to the key's discrete-log oracle;
-5. the full keyless width (n_vars 1,377,553, domain 2^21, ~42.7M
-   coefficients, synthetic key with known discrete logs): key generation,
-   prover construction, one warm-up and three timed proofs with per-phase
-   CUDA-event times, each proof checked against the discrete-log oracle,
-   and the launch counts of a main-path run (every kernel > 0). The
-   warm-up proof keeps the inputs of every MSM kernel call (K4-K7) with a
-   distinct signature -- G1 and G2, dense and compacted, each scan's
-   (L, V) and table, each merge's length and pass count -- and each is
-   then run through the kernel and its plain version: equal, with both
-   times. Last, the h scalars of the kernel path are checked against the
-   plain versions on the card.
+4. the group-law kernels (K3: complete mixed add, doubling, full add) on
+   random points with every edge case planted (either side at infinity,
+   both, P == Q, P == -Q), G1 at 2^20 and G2 at 2^18 points, against their
+   plain versions; the full add's launches are counted here (no path calls
+   it);
+5. a small proof (synthetic key at domain 2^12) on the card, which runs the
+   matmul NTT, and on the CPU through the plain versions, which runs the
+   butterfly NTT, with the same r and s: the proofs must be equal, and
+   equal to the key's discrete-log oracle;
+6. the prove path at the full keyless width (n_vars 1,377,553, domain 2^21,
+   ~42.7M coefficients, synthetic key with known discrete logs): key
+   generation, prover construction, one warm-up and three timed proofs
+   with per-phase CUDA-event times, each proof checked against the
+   discrete-log oracle, and the launch counts of one proof (every kernel of
+   the path > 0). The warm-up proof keeps the inputs of every call of the
+   MSM kernels (K4-K7) and of the reduction (K8, both bodies) with a
+   distinct signature, and each is then run through the kernel and its
+   plain version: equal, with both times. Then the h scalars of the kernel
+   path against the plain versions, and against the butterfly NTT plan on
+   the card, with both plans' iNTT and NTT times and the int8 product's;
+7. the setup path at the production domain: the chain circuit a == b^m
+   with m = 2^21 - 4 (domain 2^21, n_vars 2^21 - 2), built with the port's
+   ConstraintSystem, `groth16_setup` on the card with pinned toxic values
+   (its launch counts: K3's madd and dbl > 0; one mid-ladder dbl and madd
+   call per group kept and replayed against the plain versions), a proof
+   under that key, and the port's pairing check: true for the proof,
+   false with one coordinate changed.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -41,15 +54,60 @@ import sys
 import time
 
 KERNELS = [
-    # (wrapper name, source, the TPU kernel it replaces)
-    ("mont_mul", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145"),
-    ("window_scan", "keyless_zk_tpu_torch/csrc/msm_scan.cu", "keyless_zk_tpu/ops/pallas_msm.py:253"),
-    ("boundary_merge", "keyless_zk_tpu_torch/csrc/msm_merge.cu", "keyless_zk_tpu/ops/pallas_msm.py:413"),
-    ("weighted_bucket_total", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:548"),
-    ("horner_total", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:615"),
+    # (wrapper = launch counter, source, the TPU kernel it replaces, the path
+    # that launches it: "prove", "setup", or None for a kernel no path calls)
+    ("mont_mul", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145", "prove"),
+    ("curve_madd", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:130", "setup"),
+    ("curve_dbl", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:152", "setup"),
+    ("curve_add", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:168", None),
+    ("window_scan", "keyless_zk_tpu_torch/csrc/msm_scan.cu", "keyless_zk_tpu/ops/pallas_msm.py:253", "prove"),
+    ("boundary_merge", "keyless_zk_tpu_torch/csrc/msm_merge.cu", "keyless_zk_tpu/ops/pallas_msm.py:413", "prove"),
+    ("weighted_bucket_total", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:548",
+     "prove"),
+    ("horner_total", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:615", "prove"),
+    ("redc", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:115", "prove"),
+    ("redc_twiddle", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:122", "prove"),
 ]
 
 R_FIXED, S_FIXED = 0x1234567890ABCDEF1234567890ABCDEF, 0xFEDCBA0987654321FEDCBA0987654321
+TOXIC = {"tau": 999, "alpha": 3, "beta": 4, "gamma": 5, "delta": 6}
+
+# ---- the least time the card could take (bound_ms) ------------------------------
+# H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device memory, 1,979 TOP/s
+# int8 in the tensor cores. The data sheet gives no integer-ALU rate; the
+# SM has 64 INT32 lanes (half its 128 FP32 lanes), so 132 * 64 32-bit
+# multiply-adds per clock at the 1.98 GHz boost clock. A 32 x 32 -> 64-bit
+# product counts as two multiply-adds (low and high word).
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+# one Montgomery product over 8 words (CIOS): 8 rounds of 16 wide products
+# and one 32-bit product for m
+FQ_MUL_IMAD = 8 * (16 * 2 + 1)
+# Fq products per group op, (G1, G2): an Fq2 product is three Fq products,
+# an Fq2 square two (csrc/field.cuh)
+GROUP_OP_PRODUCTS = {
+    "dbl": (2 + 5, 2 * 3 + 5 * 2),  # dbl_core: 2 mul, 5 sqr
+    "madd": (7 + 4, 7 * 3 + 4 * 2),  # madd-2007-bl: 7 mul, 4 sqr
+    "dbl_affine": (1 + 5, 1 * 3 + 5 * 2),
+    "add": (11 + 5, 11 * 3 + 5 * 2),  # add-2007-bl: 11 mul, 5 sqr
+}
+REDC_IMAD = 10 * (8 * 2 + 1)  # K8: ten word-wise rounds by 2^32
+
+
+def group_imad(op: str, tag: str, count) -> float:
+    return float(count) * GROUP_OP_PRODUCTS[op][tag == "fq2"] * FQ_MUL_IMAD
+
+
+def nbytes(*objs) -> int:
+    """Bytes of the tensors in objs (tuples and JacPoints are walked)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+        elif hasattr(o, "element_size"):
+            total += o.numel() * o.element_size()
+    return total
 
 
 def log(msg: str) -> None:
@@ -86,7 +144,7 @@ def cuda_ms(fn, reps: int = 1, warm: bool = True) -> tuple[object, float]:
 def plain_kernels():
     """Route the main path's kernel wrappers to their plain versions on the
     card (comparison runs only; the plain versions launch no kernel)."""
-    from keyless_zk_tpu_torch.ops import cuda_field, cuda_msm
+    from keyless_zk_tpu_torch.ops import cuda_curve, cuda_field, cuda_msm, cuda_redc
 
     saved = {}
     swaps = {
@@ -97,6 +155,9 @@ def plain_kernels():
             "weighted_bucket_total": cuda_msm.weighted_bucket_total_plain,
             "horner_total": cuda_msm.horner_total_plain,
         },
+        cuda_redc: {"redc": cuda_redc.redc_columns, "redc_twiddle": cuda_redc.redc_twiddle_plain},
+        cuda_curve: {"curve_madd": cuda_curve.madd_plain, "curve_dbl": cuda_curve.dbl_plain,
+                     "curve_add": cuda_curve.add_plain},
     }
     try:
         for mod, names in swaps.items():
@@ -119,18 +180,40 @@ def rand_field(gen, n: int, spec, dev):
 
 
 def max_abs_err(a, b) -> int:
+    """Largest limb difference; a and b may be tensors or (nested) tuples."""
+    if isinstance(a, (tuple, list)):
+        return max((max_abs_err(x, y) for x, y in zip(a, b)), default=0)
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
 # ---- kernels against their plain versions -------------------------------------
 
-def record(records: dict, name, err, ms, plain_ms, note) -> None:
-    rec = records.setdefault(name, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0})
+def record(records: dict, name, err, ms, plain_ms, note, *, moved: int, imad: float = 0.0) -> None:
+    """Add one kernel-vs-plain comparison to `name`'s record. `moved` is the
+    bytes the function must move (inputs read once, outputs written once),
+    `imad` the 32-bit multiply-adds its arithmetic needs on these inputs."""
+    rec = records.setdefault(name, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                                    "bound_ms": 0.0})
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = imad / IMAD_PER_S * 1e3
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     rec["ms"] += ms
     rec["plain_ms"] += plain_ms
-    log(f"kernel {name} [{note}]: equal={err == 0} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    rec["bytes_ms"] += bytes_ms
+    rec["ops_ms"] += ops_ms
+    rec["bound_ms"] += max(bytes_ms, ops_ms)
+    log(f"kernel {name} [{note}]: equal={err == 0} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
     check(err == 0, f"{name} differs from its plain version ({note})")
+
+
+def compare(records, name, kernel, plain, args, note, *, imad: float, reps: int = 3) -> None:
+    """One input through the kernel wrapper and its plain version (with K1
+    routed to its plain version too), both timed; equal or fail."""
+    got, ms = cuda_ms(lambda: kernel(*args), reps=reps)
+    with plain_kernels():
+        want, plain_ms = cuda_ms(lambda: plain(*args), warm=False)
+    record(records, name, max_abs_err(got, want), ms, plain_ms, note, moved=nbytes(args, got), imad=imad)
 
 
 def mont_mul_checks(dev, records: dict) -> None:
@@ -165,18 +248,149 @@ def mont_mul_checks(dev, records: dict) -> None:
 
             want, plain_ms = cuda_ms(plain)
             record(records, "mont_mul", max_abs_err(got.reshape(-1, 16), want), ms, plain_ms,
-                   f"{spec.name} 2^22, {label}")
+                   f"{spec.name} 2^22, {label}", moved=nbytes(a_in, b, got), imad=n * FQ_MUL_IMAD)
+
+
+# ---- K3 on random points with the edge cases planted ------------------------------
+
+def _scaled(curve, x, y, lam):
+    """The Jacobian representative (x lam^2, y lam^3, lam) of affine (x, y)."""
+    from keyless_zk_tpu_torch.curves.jacobian import JacPoint
+
+    f = curve.ops
+    l2 = f.sqr(lam)
+    return JacPoint(f.mul(x, l2), f.mul(y, f.mul(l2, lam)), lam)
+
+
+def k3_inputs(tag: str, n: int, dev):
+    """Jacobian batches p and q (random z), the affine form of q, with every
+    edge case planted in lanes i % 64 == 0..4: p at infinity, q at infinity,
+    p == q, p == -q, both at infinity."""
+    import torch
+
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
+    from keyless_zk_tpu_torch.fields.torch_field import FQ
+    from keyless_zk_tpu_torch.ops import testgen
+
+    curve = G1_CURVE if tag == "fq" else G2_CURVE
+    f = curve.ops
+    px, py, _ = testgen.random_points(n, seed=31, curve=curve, device=dev)
+    qx, qy, _ = testgen.random_points(n, seed=32, curve=curve, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+
+    def lam():
+        v = rand_field(gen, n * (1 if tag == "fq" else 2), FQ, dev)
+        v[:, 0] |= 1  # nonzero
+        return v if tag == "fq" else v.reshape(n, 2, 16)
+
+    lane = torch.arange(n, device=dev) % 64
+    same, opposite = lane == 2, lane == 3
+    qx = f.select(same | opposite, px, qx)
+    qy = f.select(same, py, f.select(opposite, f.neg(py), qy))
+    p_inf = (lane == 0) | (lane == 4)
+    q_inf = (lane == 1) | (lane == 4)
+    p = _scaled(curve, px, py, lam())
+    p = curve.select(p_inf, JacPoint(p.x, p.y, torch.zeros_like(p.z)), p)
+    q = _scaled(curve, qx, qy, lam())
+    q = curve.select(q_inf, JacPoint(q.x, q.y, torch.zeros_like(q.z)), q)
+    return JacPoint(*(c.contiguous() for c in p)), JacPoint(*(c.contiguous() for c in q)), (qx, qy, q_inf)
+
+
+def k3_checks(dev, records: dict) -> int:
+    """madd, dbl and add on random batches with the edge cases, G1 2^20 and
+    G2 2^18 points; returns the full add's launches (its only ones)."""
+    import torch
+
+    from keyless_zk_tpu_torch.ops import cuda_curve
+
+    add_launches = 0
+    for tag, n in (("fq", 1 << 20), ("fq2", 1 << 18)):
+        p, q, (qx, qy, q_inf) = k3_inputs(tag, n, dev)
+        torch.cuda.synchronize()
+        n_dbl_affine = int(((torch.arange(n, device=dev) % 64) == 2).sum())
+        compare(records, "curve_madd", cuda_curve.curve_madd, cuda_curve.madd_plain, (p, qx, qy, q_inf, tag),
+                f"{tag} n={n}, edge cases planted",
+                imad=group_imad("madd", tag, n) + group_imad("dbl_affine", tag, n_dbl_affine))
+        compare(records, "curve_dbl", cuda_curve.curve_dbl, cuda_curve.dbl_plain, (p, tag),
+                f"{tag} n={n}", imad=group_imad("dbl", tag, n))
+        before = cuda_curve.curve_add.launches
+        compare(records, "curve_add", cuda_curve.curve_add, cuda_curve.add_plain, (p, q, tag),
+                f"{tag} n={n}, edge cases planted", imad=group_imad("add", tag, n))
+        add_launches += cuda_curve.curve_add.launches - before
+        del p, q, qx, qy, q_inf
+        torch.cuda.empty_cache()
+    return add_launches
+
+
+# ---- capturing the kernels' inputs on a path ------------------------------------
+
+def _signature(name: str, args) -> tuple:
+    def sig(a):
+        if hasattr(a, "shape"):
+            return tuple(a.shape)
+        if isinstance(a, tuple):
+            return tuple(sig(x) for x in a)
+        return a
+
+    return (name, *(sig(a) for a in args))
+
+
+def _clone(a):
+    if hasattr(a, "clone"):
+        return a.clone()
+    if isinstance(a, tuple):
+        return type(a)(*(_clone(x) for x in a))
+    return a
+
+
+@contextlib.contextmanager
+def capture_calls(module, names, store: dict, at: int = 0):
+    """While a path runs, keep a copy of the inputs of the at-th call of each
+    kernel wrapper `names` of `module` per argument signature (tensor and
+    point shapes, tags and integer arguments)."""
+    saved = {name: getattr(module, name) for name in names}
+    seen: dict = {}
+
+    class Spy:
+        # the wrappers bump `<own name>.launches`, a module global that
+        # names this object while it is installed: forward it to the wrapper
+        def __init__(self, name, fn):
+            self.name, self.fn = name, fn
+
+        def __call__(self, *args):
+            sig = _signature(self.name, args)
+            seen[sig] = seen.get(sig, -1) + 1
+            if seen[sig] == at:
+                store[sig] = tuple(_clone(a) for a in args)
+            return self.fn(*args)
+
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, value):
+            self.fn.launches = value
+
+    try:
+        for name, fn in saved.items():
+            setattr(module, name, Spy(name, fn))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 MSM_KERNELS = ("window_scan", "boundary_merge", "weighted_bucket_total", "horner_total")
-
-
-def _signature(name: str, args) -> tuple:
-    return (name, *(tuple(a.shape) if hasattr(a, "shape") else a for a in args))
+REDC_KERNELS = ("redc", "redc_twiddle")
 
 
 def _describe(sig: tuple) -> str:
-    name, tag, *rest = sig
+    name, *rest = sig
+    if name in REDC_KERNELS:
+        return f"N={rest[0][1]}"
+    tag, *rest = rest
     if name == "window_scan":
         (L, V), _, (rows, _), _ = rest
         return f"{tag} L={L} V={V} table {rows} rows"
@@ -190,40 +404,26 @@ def _describe(sig: tuple) -> str:
     return f"{tag} Wn={wn} c={c}"
 
 
-@contextlib.contextmanager
-def capture_msm_calls(store: dict):
-    """While the main path runs, keep a copy of the inputs of the first call
-    of each MSM kernel wrapper (K4-K7) per argument signature: the tag, the
-    tensor shapes and the integer arguments (K5's pass count, K7's c)."""
-    from keyless_zk_tpu_torch.ops import cuda_msm
+def msm_imad(name: str, args) -> float:
+    """The multiply-adds a K4-K7 call needs on these inputs."""
+    import torch
 
-    saved = {name: getattr(cuda_msm, name) for name in MSM_KERNELS}
-
-    class Spy:
-        # the wrappers bump `<own name>.launches`, a module global that
-        # names this object while it is installed: forward it to the wrapper
-        def __init__(self, name, fn):
-            self.name, self.fn = name, fn
-
-        def __call__(self, *args):
-            store.setdefault(_signature(self.name, args), tuple(a.clone() if hasattr(a, "clone") else a for a in args))
-            return self.fn(*args)
-
-        @property
-        def launches(self):
-            return self.fn.launches
-
-        @launches.setter
-        def launches(self, value):
-            self.fn.launches = value
-
-    try:
-        for name, fn in saved.items():
-            setattr(cuda_msm, name, Spy(name, fn))
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(cuda_msm, name, fn)
+    tag = args[0]
+    if name == "window_scan":  # one mixed add per stream entry of a finite point
+        _, _, pay, _, tinf = args
+        return group_imad("madd", tag, int((~tinf[(pay & ((1 << 30) - 1)).long()]).sum()))
+    if name == "boundary_merge":  # one add per lane whose partner shares its key, per pass
+        _, keys, _, max_steps = args
+        m = keys.shape[0]
+        idx = torch.arange(m, device=keys.device)
+        adds = sum(int(((torch.roll(keys, -(1 << s)) == keys) & (idx < m - (1 << s))).sum())
+                   for s in range(min(max_steps, max(m - 1, 1).bit_length())))
+        return group_imad("add", tag, adds)
+    if name == "weighted_bucket_total":  # the running sum and its integral over every bucket
+        _, tbl = args
+        return group_imad("add", tag, 2 * tbl.shape[1] * tbl.shape[2])
+    _, wins, c = args  # Horner: c doublings and one add per window below the top
+    return group_imad("dbl", tag, (wins.shape[1] - 1) * c) + group_imad("add", tag, wins.shape[1] - 1)
 
 
 def msm_kernel_checks(store: dict, records: dict) -> None:
@@ -235,18 +435,26 @@ def msm_kernel_checks(store: dict, records: dict) -> None:
         for tag in ("fq", "fq2"):
             check(any(sig[:2] == (name, tag) for sig in store), f"no main-path call of {name} ({tag}) captured")
     for sig, args in store.items():
-        name, tag = sig[0], sig[1]
-        kernel, plain = getattr(cuda_msm, name), getattr(cuda_msm, name + "_plain")
-        got, ms = cuda_ms(lambda: kernel(*args), reps=3)
-        want, plain_ms = cuda_ms(lambda: plain(*args), warm=False)
-        if name == "window_scan":
-            err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        else:
-            err = max_abs_err(got, want)
-        record(records, name, err, ms, plain_ms, _describe(sig))
+        name = sig[0]
+        compare(records, name, getattr(cuda_msm, name), getattr(cuda_msm, name + "_plain"), args, _describe(sig),
+                imad=msm_imad(name, args))
 
 
-# ---- phases 4 and 5: proofs -----------------------------------------------------
+def redc_kernel_checks(store: dict, records: dict) -> None:
+    """Each captured main-path call of K8 (both bodies) through the kernel
+    and through its plain version."""
+    from keyless_zk_tpu_torch.ops import cuda_redc
+
+    for name in REDC_KERNELS:
+        check(any(sig[0] == name for sig in store), f"no main-path call of {name} captured")
+    plains = {"redc": cuda_redc.redc_columns, "redc_twiddle": cuda_redc.redc_twiddle_plain}
+    for sig, args in store.items():
+        n = args[0].shape[1]
+        imad = n * (REDC_IMAD + (FQ_MUL_IMAD if sig[0] == "redc_twiddle" else 0))
+        compare(records, sig[0], getattr(cuda_redc, sig[0]), plains[sig[0]], args, _describe(sig), imad=imad)
+
+
+# ---- proofs ---------------------------------------------------------------------
 
 def prove_checked(prover, key, r, s, label):
     from keyless_zk_tpu_torch.fields import torch_field as tf
@@ -272,19 +480,66 @@ def small_proof(dev) -> None:
     key = testgen.synthetic_key(
         5, n_vars=3000, n_public=1, domain_pow=12, n_distinct_a=2600, n_distinct_b=1800, n_coefs=80_000, device=dev
     )
-    gpu_proof, _ = prove_checked(Groth16Prover(key.pk, dev), key, R_FIXED, S_FIXED, "small proof (gpu, domain 2^12)")
+    gpu = Groth16Prover(key.pk, dev)
+    cpu = Groth16Prover(key.pk, "cpu")
+    log(f"small proof plans: gpu {type(gpu.plan).__name__}, cpu {type(cpu.plan).__name__}")
+    check(type(gpu.plan).__name__ == "MxuNTTPlan", "the card's small proof does not run the matmul NTT")
+    gpu_proof, _ = prove_checked(gpu, key, R_FIXED, S_FIXED, "small proof (gpu, matmul NTT, domain 2^12)")
     torch.set_num_threads(8)
-    cpu_proof, _ = prove_checked(Groth16Prover(key.pk, "cpu"), key, R_FIXED, S_FIXED, "small proof (cpu plain, domain 2^12)")
+    cpu_proof, _ = prove_checked(cpu, key, R_FIXED, S_FIXED, "small proof (cpu plain, butterfly NTT, domain 2^12)")
     equal = gpu_proof == cpu_proof
     log(f"small proof: gpu == cpu: {equal}")
     check(equal, "the GPU proof differs from the CPU proof")
+
+
+def ntt_plans(prover, w, dev) -> None:
+    """The full-width h scalars under the matmul plan (the prover's) and the
+    butterfly plan on the card: equal; each plan's iNTT and NTT ms on the
+    batched (3, 2^21) input, and the int8 product of one radix-128 pass."""
+    import torch
+
+    from keyless_zk_tpu_torch.fields import torch_field as tf
+    from keyless_zk_tpu_torch.ops.ntt import NTTPlan
+
+    matmul = prover.plan
+    got = prover._h_scalars(w)
+    butterfly = NTTPlan(prover.domain_pow, dev)
+    prover.plan = butterfly
+    try:
+        want = prover._h_scalars(w)
+    finally:
+        prover.plan = matmul
+    equal = torch.equal(got, want)
+    log(f"full width: h scalars matmul plan == butterfly plan: {equal}")
+    check(equal, "h scalars differ between the matmul and the butterfly NTT plans")
+
+    n = prover.pk.domain_size
+    ab = prover._eval_ab(w)
+    abc = torch.stack([ab[:n], ab[n:], tf.mont_mul(ab[:n], ab[n:], tf.FR)])
+    for label, plan in (("matmul", matmul), ("butterfly", butterfly), ("matmul", matmul), ("butterfly", butterfly)):
+        _, intt_ms = cuda_ms(lambda: plan.intt(abc), reps=3)
+        _, ntt_ms = cuda_ms(lambda: plan.ntt(abc), reps=3)
+        log(f"ntt plan {label} (3, 2^{prover.domain_pow}): intt {intt_ms:.3f} ms, ntt {ntt_ms:.3f} ms")
+    del butterfly
+
+    # the int8 product of one radix-128 pass over the batched input
+    w_big = matmul.tables[0][0]
+    cols = 3 * n // 128
+    planes = torch.randint(-128, 128, (cols, w_big.shape[1]), dtype=torch.int8, device=dev)
+    _, mm_ms = cuda_ms(lambda: torch._int_mm(w_big, planes.t()), reps=5)
+    ops = 2 * w_big.shape[0] * w_big.shape[1] * cols
+    moved = nbytes(w_big, planes) + w_big.shape[0] * cols * 4
+    bound = max(ops / INT8_OPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+    log(f"int8 product of one pass ({w_big.shape[0]} x {w_big.shape[1]} @ {w_big.shape[1]} x {cols}): "
+        f"{mm_ms:.3f} ms, bound {bound:.3f} ms ({ops / 1e12:.3f} T int8 ops, {moved / 1e9:.3f} GB), "
+        f"{len(matmul.factors)} passes per transform")
 
 
 def full_width(dev, counts_out: dict, records: dict) -> None:
     import torch
 
     from keyless_zk_tpu_torch.groth16.prover import Groth16Prover
-    from keyless_zk_tpu_torch.ops import _build, testgen
+    from keyless_zk_tpu_torch.ops import _build, cuda_msm, cuda_redc, testgen
 
     t0 = time.perf_counter()
     key = testgen.synthetic_key(2026, device=dev, **testgen.KEYLESS_SHAPE)
@@ -294,30 +549,36 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     t0 = time.perf_counter()
     prover = Groth16Prover(key.pk, dev)
     torch.cuda.synchronize()
-    log(f"full width: prover construction {time.perf_counter() - t0:.1f} s")
+    log(f"full width: prover construction {time.perf_counter() - t0:.1f} s, NTT plan {type(prover.plan).__name__}")
+    check(type(prover.plan).__name__ == "MxuNTTPlan", "the full-width proof does not run the matmul NTT")
 
-    calls: dict = {}
-    with capture_msm_calls(calls):
-        prove_checked(prover, key, R_FIXED, S_FIXED, "full proof warm-up (K4-K7 inputs captured)")
+    msm_calls: dict = {}
+    redc_calls: dict = {}
+    with capture_calls(cuda_msm, MSM_KERNELS, msm_calls), capture_calls(cuda_redc, REDC_KERNELS, redc_calls):
+        prove_checked(prover, key, R_FIXED, S_FIXED, "full proof warm-up (K4-K8 inputs captured)")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
-    msm_kernel_checks(calls, records)
-    del calls
+    msm_kernel_checks(msm_calls, records)
+    del msm_calls
+    redc_kernel_checks(redc_calls, records)
+    del redc_calls
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    _build.reset_launch_counts()
     walls = []
     for i in range(3):
+        if i == 0:
+            _build.reset_launch_counts()
         _, wall = prove_checked(prover, key, R_FIXED + i, S_FIXED + i, f"full proof {i + 1}")
-        walls.append(wall)
-        log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
         if i == 0:
             counts_out.update(_build.launch_counts())
+        walls.append(wall)
+        log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
     log(f"full width: proof wall ms {[round(w, 1) for w in walls]}, "
         f"peak device memory over the timed proofs {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"launch counts (one full proof): {json.dumps(counts_out)}")
-    for name, _, _ in KERNELS:
-        check(counts_out.get(name, 0) > 0, f"kernel {name} was not launched by the main path")
+    log(f"launch counts (prove path, one full proof): {json.dumps(counts_out)}")
+    for name, _, _, path in KERNELS:
+        if path == "prove":
+            check(counts_out.get(name, 0) > 0, f"kernel {name} was not launched by the prove path")
 
     w = torch.from_numpy(key.witness.astype("int32")).to(dev)
     got = prover._h_scalars(w)
@@ -326,6 +587,89 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     equal = torch.equal(got, want)
     log(f"full width: h scalars kernel path == plain path: {equal}")
     check(equal, "h scalars differ between the kernel path and the plain path")
+    ntt_plans(prover, w, dev)
+
+
+# ---- the setup path ------------------------------------------------------------
+
+def chain_circuit(domain_pow: int):
+    """a == b^m, m = 2^domain_pow - 4 (one constraint per product, then the
+    equality), a public, b = 3: (cs, witness ints, public wire)."""
+    from keyless_zk_tpu_torch.circuits import ConstraintSystem
+    from keyless_zk_tpu_torch.fields import bn254
+
+    m = (1 << domain_pow) - 4
+    cs = ConstraintSystem()
+    a = cs.public_wire()
+    cs.set_input_hint([a], "a")
+    b = cs.new_wire()
+    cs.set_input_hint([b], "b")
+    x = b
+    for _ in range(m - 1):
+        x = cs.mul(cs.lc(x), cs.lc(b))
+    cs.constrain_eq(cs.lc(x), cs.lc(a))
+    w = cs.compute_witness(a=pow(3, m, bn254.R_SCALAR), b=3)
+    return cs, w, a
+
+
+def setup_path(dev, counts_out: dict, records: dict, domain_pow: int = 21) -> None:
+    import torch
+
+    from keyless_zk_tpu_torch.circuits import groth16_setup, r1cs_from_cs
+    from keyless_zk_tpu_torch.groth16 import Groth16Prover, verify_groth16
+    from keyless_zk_tpu_torch.ops import _build, cuda_curve
+
+    t0 = time.perf_counter()
+    cs, w, a = chain_circuit(domain_pow)
+    check(cs.check_witness(w) is None, "the chain circuit's witness violates a constraint")
+    r1cs = r1cs_from_cs(cs)
+    log(f"setup path: chain circuit built in {time.perf_counter() - t0:.1f} s "
+        f"({r1cs.n_constraints} constraints, {r1cs.n_wires} wires)")
+
+    calls: dict = {}
+    _build.reset_launch_counts()
+    with capture_calls(cuda_curve, ("curve_dbl", "curve_madd"), calls, at=100):
+        t0 = time.perf_counter()
+        res = groth16_setup(r1cs, toxic=TOXIC, device=dev)
+        torch.cuda.synchronize()
+    counts_out.update(_build.launch_counts())
+    log(f"setup path: groth16_setup {time.perf_counter() - t0:.1f} s (host {res.seconds['host']:.1f} s, "
+        f"device ladders {res.seconds['device']:.1f} s), domain {res.pk.domain_size}")
+    log(f"launch counts (setup path): {json.dumps(counts_out)}")
+    for name, _, _, path in KERNELS:
+        if path == "setup":
+            check(counts_out.get(name, 0) > 0, f"kernel {name} was not launched by the setup path")
+    for name in ("curve_dbl", "curve_madd"):
+        for tag in ("fq", "fq2"):
+            check(any(sig[0] == name and sig[-1] == tag for sig in calls), f"no setup call of {name} ({tag}) captured")
+    for sig, args in calls.items():
+        name, tag = sig[0], sig[-1]
+        n = args[0].x.shape[0]
+        if name == "curve_dbl":
+            compare(records, name, cuda_curve.curve_dbl, cuda_curve.dbl_plain, args,
+                    f"setup ladder step, {tag} n={n}", imad=group_imad("dbl", tag, n))
+        else:
+            compare(records, name, cuda_curve.curve_madd, cuda_curve.madd_plain, args,
+                    f"setup ladder step, {tag} n={n}, generator broadcast", imad=group_imad("madd", tag, n))
+    del calls
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    prover = Groth16Prover(res.pk, dev)
+    witness = cs.witness_np(w)
+    t1 = time.perf_counter()
+    proof = prover.prove(witness, r=R_FIXED, s=S_FIXED)
+    t2 = time.perf_counter()
+    ok = verify_groth16(res.vk, [w[a]], proof.to_json_dict())
+    t3 = time.perf_counter()
+    tampered = proof.to_json_dict()
+    tampered["pi_c"][0] = str(int(tampered["pi_c"][0]) + 1)
+    bad = verify_groth16(res.vk, [w[a]], tampered)
+    log(f"setup path: prover construction {t1 - t0:.1f} s, proof {1e3 * (t2 - t1):.1f} ms "
+        f"({type(prover.plan).__name__}), pairing check {t3 - t2:.1f} s: verifies {ok}, tampered verifies {bad}")
+    log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
+    check(ok, "the proof under the card's setup does not verify")
+    check(not bad, "a tampered proof verifies")
 
 
 def main() -> int:
@@ -350,7 +694,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     records: dict = {}
-    counts: dict = {}
+    counts = {"prove": {}, "setup": {}}
     try:
         log(f"card: {card}")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -358,25 +702,31 @@ def main() -> int:
         _build.library()
         log(f"build: {secs:.1f} s -> {lib}")
         mont_mul_checks(dev, records)
+        counts[None] = {"curve_add": k3_checks(dev, records)}
         small_proof(dev)
-        full_width(dev, counts, records)
+        full_width(dev, counts["prove"], records)
+        torch.cuda.empty_cache()
+        setup_path(dev, counts["setup"], records)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    kernels = [
-        {
+    kernels = []
+    for name, src, rep, path in KERNELS:
+        rec = records[name]
+        kernels.append({
             "name": name,
             "route": "cuda",
             "source": src,
             "replaces": rep,
-            "launches": counts[name],
-            "max_abs_err": records[name]["max_abs_err"],
-            "ms": round(records[name]["ms"], 4),
-            "plain_ms": round(records[name]["plain_ms"], 4),
-        }
-        for name, src, rep in KERNELS
-    ]
+            "launches": counts[path][name],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": round(rec["ms"], 4),
+            "plain_ms": round(rec["plain_ms"], 4),
+            "bound_ms": round(rec["bound_ms"], 4),
+            "bound_by": "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations",
+            "library_ms": None,  # no PyTorch call computes a BN254 field or group operation
+        })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

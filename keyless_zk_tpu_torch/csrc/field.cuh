@@ -186,6 +186,29 @@ __device__ __forceinline__ Fp<M> sqr(const Fp<M>& a) {
   return mul(a, a);
 }
 
+// ---- row-major (n, 16) int32 records: 64 bytes, four 16-byte vectors ----------
+
+template <class M>
+__device__ __forceinline__ Fp<M> load_row(const int4* row) {
+  Fp<M> r;
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    int4 q = row[k];
+    r.v[2 * k] = ((uint32_t)q.x & 0xffffu) | ((uint32_t)q.y << 16);
+    r.v[2 * k + 1] = ((uint32_t)q.z & 0xffffu) | ((uint32_t)q.w << 16);
+  }
+  return r;
+}
+
+template <class M>
+__device__ __forceinline__ void store_row(int4* row, const Fp<M>& a) {
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    uint32_t lo = a.v[2 * k], hi = a.v[2 * k + 1];
+    row[k] = make_int4((int)(lo & 0xffffu), (int)(lo >> 16), (int)(hi & 0xffffu), (int)(hi >> 16));
+  }
+}
+
 // ---- Fq2 = Fq[u]/(u^2 + 1) ---------------------------------------------------
 
 struct Fq2 {

@@ -22,29 +22,12 @@
 using namespace kzk;
 
 template <class M>
-__device__ __forceinline__ Fp<M> unpack_row(const int4* row) {
-  Fp<M> r;
-#pragma unroll
-  for (int k = 0; k < 4; k++) {
-    int4 q = row[k];
-    r.v[2 * k] = ((uint32_t)q.x & 0xffffu) | ((uint32_t)q.y << 16);
-    r.v[2 * k + 1] = ((uint32_t)q.z & 0xffffu) | ((uint32_t)q.w << 16);
-  }
-  return r;
-}
-
-template <class M>
 __global__ void mont_mul_kernel(const int4* __restrict__ a, const int4* __restrict__ b,
                                 int4* __restrict__ out, long long n, long long nb) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   long long ib = nb == 1 ? 0 : i % nb;
-  Fp<M> r = mul(unpack_row<M>(a + 4 * i), unpack_row<M>(b + 4 * ib));
-#pragma unroll
-  for (int k = 0; k < 4; k++) {
-    uint32_t lo = r.v[2 * k], hi = r.v[2 * k + 1];
-    out[4 * i + k] = make_int4((int)(lo & 0xffffu), (int)(lo >> 16), (int)(hi & 0xffffu), (int)(hi >> 16));
-  }
+  store_row(out + 4 * i, mul(load_row<M>(a + 4 * i), load_row<M>(b + 4 * ib)));
 }
 
 // a: (n, 16) int32 rows; b: (nb, 16) int32 rows, row i of a pairs with row

@@ -7,7 +7,8 @@ Per proof, on the prover's device:
   3. four MSMs over the witness (A, B1, C on G1; B2 on G2)   [ops/msm.py]
   4. the h scalars (`_h_scalars`): coefficient-table evaluation into the
      a|b vectors, c = a*b, one batched (3, n) iNTT -> coset shift -> NTT,
-     h = a*b - c, from_mont                                    [ops/ntt.py]
+     h = a*b - c, from_mont              [ops/mxu_ntt.py on the card,
+                                          ops/ntt.py on the CPU]
   5. the H MSM;
   6. decode the five results to affine (one batched inversion per group,
      one readback each);
@@ -33,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import device as devices
 from ..curves import ref_curve
 from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
 from ..fields import bn254
@@ -40,6 +42,7 @@ from ..fields import torch_field as tf
 from ..fields.limbs import NUM_LIMBS
 from ..fields.torch_field import FR
 from ..ops.msm import msm
+from ..ops.mxu_ntt import get_mxu_plan
 from ..ops.ntt import NTTPlan
 from .zkey import ProvingKey
 
@@ -122,22 +125,33 @@ def _limbs(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(device)
 
 
+def _pick_plan(domain_pow: int, device: torch.device):
+    """The matmul NTT (ops/mxu_ntt.py, K8) on the card for a domain of at
+    least one radix-128 pass; the butterfly plan on the CPU. Decided by
+    the device, as the JAX package decides by backend
+    (keyless_zk_tpu/groth16/prover.py `_pick_plan`)."""
+    if device.type == "cuda" and domain_pow >= 7:
+        return get_mxu_plan(domain_pow, device)
+    return NTTPlan(domain_pow, device)
+
+
 class Groth16Prover:
-    """Proving key resident on `device` + the prove pipeline.
+    """Proving key resident on `device` (the card unless the caller asks
+    for the CPU) + the prove pipeline.
 
     Construct once per key, call :meth:`prove` per witness. After a proof,
     `last_h` holds its h scalars (the MSM_H input, for checks such as the
     discrete-log oracle) and, on a CUDA device, `phase_ms` its phase times."""
 
-    def __init__(self, pk: ProvingKey, device="cpu"):
+    def __init__(self, pk: ProvingKey, device=devices.DEFAULT):
         if pk.q != bn254.Q or pk.r != bn254.R_SCALAR:
             raise ValueError("zkey curve is not BN254")  # fullprover.cpp:154-158
         self.pk = pk
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
         self.domain_pow = (pk.domain_size - 1).bit_length()
         if (1 << self.domain_pow) != pk.domain_size:
             raise ValueError("domain size must be a power of two")
-        self.plan = NTTPlan(self.domain_pow, self.device)
+        self.plan = _pick_plan(self.domain_pow, self.device)
         self.phase_ms: dict[str, float] = {}
         self.last_h: torch.Tensor | None = None
         dev = self.device

@@ -119,6 +119,10 @@ def library() -> ctypes.CDLL:
         "kzk_boundary_merge_pass": [P, P, P, LL, LL, I, P],
         "kzk_weighted_bucket_total": [P, P, LL, LL, I, I, P],
         "kzk_horner_total": [P, P, LL, I, I, P],
+        "kzk_redc": [P, P, P, LL, P],
+        "kzk_curve_madd": [P, P, P, P, P, P, P, P, P, LL, LL, I, P],
+        "kzk_curve_dbl": [P, P, P, P, P, P, LL, I, P],
+        "kzk_curve_add": [P, P, P, P, P, P, P, P, P, LL, I, P],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

@@ -31,7 +31,7 @@ import torch
 
 from ..curves.jacobian import G1_CURVE, JacobianCurve, JacPoint
 from ..fields.limbs import LIMB_BITS, NUM_LIMBS
-from . import cuda_msm
+from . import cuda_curve, cuda_msm
 from .cuda_msm import planes_to_point, rows_for, tree_reduce_points
 
 SCALAR_BITS = 254
@@ -100,9 +100,13 @@ def _p2(x: int) -> int:
 def _msm_small(points_x, points_y, points_inf, scalars, *, curve: JacobianCurve) -> JacPoint:
     """Direct MSM for small n: batched double-and-add over all points at
     once (254 steps), then a log-depth tree sum. The points are affine, so
-    each step takes the mixed add (the JAX version lifts them to Jacobian
-    and takes the full add: same points, other coordinates)."""
+    each step takes the complete mixed add of K3 (ops/cuda_curve.py; the
+    JAX version lifts them to Jacobian and takes the full add: same points,
+    other coordinates). On the card a step is two K3 launches and no host
+    sync, where the group law in torch takes many small launches and a sync
+    (a key whose B tables hold a few distinct points takes this path)."""
     n = scalars.shape[0]
+    tag = "fq" if curve is G1_CURVE else "fq2"
     bit_idx = torch.arange(SCALAR_BITS - 1, -1, -1, device=scalars.device)
     bits = (scalars.long()[:, bit_idx // LIMB_BITS] >> (bit_idx % LIMB_BITS)) & 1  # (n, 254)
     acc = curve.infinity((n,), scalars.device)
@@ -111,8 +115,8 @@ def _msm_small(points_x, points_y, points_inf, scalars, *, curve: JacobianCurve)
     # so those steps are skipped: witness scalars are mostly 0/1
     live = torch.nonzero(bits.any(dim=0))
     for i in range(int(live[0]) if live.numel() else SCALAR_BITS, SCALAR_BITS):
-        acc = curve.dbl(acc)
-        acc = curve.select(bits[:, i] == 1, curve.add_mixed(acc, points_x, points_y, points_inf), acc)
+        acc = cuda_curve.curve_dbl(acc, tag)
+        acc = curve.select(bits[:, i] == 1, cuda_curve.curve_madd(acc, points_x, points_y, points_inf, tag), acc)
     return tree_reduce_points(curve, acc, n)
 
 

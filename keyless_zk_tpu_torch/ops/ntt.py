@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import device as devices
 from ..fields import bn254
 from ..fields import torch_field as tf
 from ..fields.torch_field import FR
@@ -45,14 +46,15 @@ def geometric_powers(base_mont: torch.Tensor, n: int) -> torch.Tensor:
 
 
 class NTTPlan:
-    """Twiddle tables for one 2^domain_pow domain, resident on `device`."""
+    """Twiddle tables for one 2^domain_pow domain, resident on `device`
+    (the card unless the caller asks for the CPU)."""
 
-    def __init__(self, domain_pow: int, device="cpu"):
+    def __init__(self, domain_pow: int, device=devices.DEFAULT):
         if domain_pow > bn254.TWO_ADICITY:
             raise ValueError("domain size too big for the curve")  # fft.cpp:80-83
         self.domain_pow = domain_pow
         self.n = 1 << domain_pow
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
         w = bn254.fr_root_of_unity(domain_pow)
         self.n_inv_mont = tf.encode_ints([pow(self.n, -1, FR.p)], FR, mont=True, device=self.device)[0]
         # level d needs (w^(2^d))^c for c < n / 2^(d+1)

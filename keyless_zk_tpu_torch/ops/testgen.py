@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import device as devices
 from ..curves import ref_curve
 from ..curves.jacobian import G1_CURVE, G2_CURVE, JacobianCurve
 from ..fields import bn254
@@ -91,19 +92,20 @@ def _random_below_r(rng: np.random.Generator, n: int) -> np.ndarray:
     return limbs
 
 
-def random_points(n: int, seed: int = 0, curve: JacobianCurve | None = None, device="cpu"):
+def random_points(n: int, seed: int = 0, curve: JacobianCurve | None = None, device=devices.DEFAULT):
     """n random affine points k_i * G, k_i random below r: (x, y, inf)."""
     curve = curve or G1_CURVE
     k = _random_below_r(np.random.default_rng(seed), n)
-    return fixed_base_points(torch.from_numpy(k.astype(np.int32)).to(device), curve)
+    return fixed_base_points(torch.from_numpy(k.astype(np.int32)).to(devices.resolve(device)), curve)
 
 
-def random_scalars(n: int, seed: int = 1, device="cpu") -> torch.Tensor:
+def random_scalars(n: int, seed: int = 1, device=devices.DEFAULT) -> torch.Tensor:
     """Uniform [0, r) scalars as (n, 16) int32 limbs; the same values as the
     JAX package's random_scalars for the same seed."""
+    dev = devices.resolve(device)
     rng = np.random.default_rng(seed)
     vals = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)]
-    return torch.from_numpy(ints_to_limbs(vals).astype(np.int32)).to(device)
+    return torch.from_numpy(ints_to_limbs(vals).astype(np.int32)).to(dev)
 
 
 # ---- a keyless-shape key with known discrete logs -----------------------------
@@ -155,10 +157,12 @@ def synthetic_key(
     n_distinct_a: int,
     n_distinct_b: int,
     n_coefs: int,
-    device="cpu",
+    device=devices.DEFAULT,
 ) -> SyntheticKey:
     """A proving key with random tables of the given shapes and known dlogs,
-    plus a witness of keyless shape. Points are built on `device`."""
+    plus a witness of keyless shape. Points are built on `device` (the card
+    unless the caller asks for the CPU)."""
+    device = devices.resolve(device)
     rng = np.random.default_rng(seed)
     n = 1 << domain_pow
     alpha, beta, gamma, delta = (int(v) for v in limbs_to_ints(_random_below_r(rng, 4)))

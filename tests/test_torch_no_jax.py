@@ -1,52 +1,128 @@
-"""The port runs without JAX: a fresh interpreter whose import system
-refuses `jax`, `jaxlib` and the JAX package imports keyless_zk_tpu_torch,
-makes a tiny synthetic key, proves on the CPU and checks the proof against
-the key's discrete-log oracle."""
+"""The port runs without JAX: fresh interpreters whose import system refuses
+`jax`, `jaxlib` and the JAX package import every module of
+keyless_zk_tpu_torch, prove on the CPU under a tiny synthetic key (checked
+against its discrete-log oracle), and run setup -> prove -> verify on a tiny
+chain circuit (the setup through K3's plain versions). `chip_smoke.py`
+imports nothing of JAX either, at its top level or inside its functions."""
 
+import ast
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "keyless_zk_tpu")
 
-CHILD = r'''
+REFUSE = r'''
 import sys
 
 BLOCKED = ("jax", "jaxlib", "keyless_zk_tpu")
 
 
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
 class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+        if blocked(name):
             raise ImportError("refused in this process: " + name)
         return None
 
 
 sys.meta_path.insert(0, Refuse())
+'''
+
+DONE = r'''
+loaded = [m for m in sys.modules if blocked(m)]
+assert not loaded, loaded
+print("NO_JAX_OK")
+'''
+
+PROVE = REFUSE + r'''
+import importlib
+import pkgutil
+
 import torch
 
 torch.set_num_threads(1)
+import keyless_zk_tpu_torch
+
+modules = [m.name for m in pkgutil.walk_packages(keyless_zk_tpu_torch.__path__, "keyless_zk_tpu_torch.")]
+for name in modules:
+    importlib.import_module(name)
+assert len(modules) >= 20, modules
+
 from keyless_zk_tpu_torch.fields import torch_field as tf
 from keyless_zk_tpu_torch.groth16 import Groth16Prover
 from keyless_zk_tpu_torch.ops import testgen
 
 key = testgen.synthetic_key(
-    4, n_vars=24, n_public=1, domain_pow=3, n_distinct_a=20, n_distinct_b=14, n_coefs=40
+    4, n_vars=24, n_public=1, domain_pow=3, n_distinct_a=20, n_distinct_b=14, n_coefs=40, device="cpu"
 )
-prover = Groth16Prover(key.pk)
+prover = Groth16Prover(key.pk, device="cpu")
 proof = prover.prove(key.witness, r=11, s=13)
 want = testgen.expected_proof(key, tf.decode_ints(prover.last_h, tf.FR), 11, 13)
 assert (proof.pi_a, proof.pi_b, proof.pi_c) == want, "proof differs from the dlog oracle"
-loaded = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
-assert not loaded, loaded
-print("NO_JAX_OK")
-'''
+''' + DONE
+
+SETUP = REFUSE + r'''
+import torch
+
+torch.set_num_threads(1)
+from keyless_zk_tpu_torch.circuits import ConstraintSystem, groth16_setup, r1cs_from_cs
+from keyless_zk_tpu_torch.groth16 import Groth16Prover, verify_groth16
+
+cs = ConstraintSystem()
+a = cs.public_wire()
+cs.set_input_hint([a], "a")
+b = cs.new_wire()
+cs.set_input_hint([b], "b")
+x = b
+for _ in range(3):
+    x = cs.mul(cs.lc(x), cs.lc(b))
+cs.constrain_eq(cs.lc(x), cs.lc(a))
+w = cs.compute_witness(a=3**4, b=3)
+res = groth16_setup(r1cs_from_cs(cs), toxic={"tau": 99, "alpha": 3, "beta": 4, "gamma": 5, "delta": 6},
+                    device_threshold=0, device="cpu")
+proof = Groth16Prover(res.pk, device="cpu").prove(cs.witness_np(w), r=5, s=6).to_json_dict()
+assert verify_groth16(res.vk, [w[a]], proof)
+assert not verify_groth16(res.vk, [w[a] + 1], proof)
+''' + DONE
+
+IMPORT_CHIP_SMOKE = REFUSE + r'''
+import chip_smoke
+
+assert callable(chip_smoke.main)
+''' + DONE
+
+
+def _run(code: str) -> None:
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "NO_JAX_OK" in out.stdout
 
 
 def test_port_proves_without_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run(
-        [sys.executable, "-c", CHILD], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600
-    )
-    assert out.returncode == 0, out.stderr[-4000:]
-    assert "NO_JAX_OK" in out.stdout
+    _run(PROVE)
+
+
+def test_port_sets_up_proves_and_verifies_without_jax():
+    _run(SETUP)
+
+
+def test_chip_smoke_imports_no_jax():
+    """Every import statement of chip_smoke.py, the ones inside its
+    functions too, names no JAX module; and it imports under the refusal."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "keyless_zk_tpu_torch.ops" in names
+    assert not [n for n in names if any(n == b or n.startswith(b + ".") for b in BLOCKED)]
+    _run(IMPORT_CHIP_SMOKE)

@@ -22,7 +22,7 @@ def test_ntt_intt_coset_bitwise(domain_pow):
     rng = np.random.default_rng(domain_pow)
     x = tf.to_mont(limbs_t(rand_ints(rng, 3 * n, tf.FR.p)), tf.FR).reshape(3, n, 16)
     jplan = JaxPlan(domain_pow, cache=False)
-    plan = NTTPlan(domain_pow)
+    plan = NTTPlan(domain_pow, device="cpu")
     jx = jnp.asarray(x.numpy().astype(np.uint32))
 
     def eq(j, t):

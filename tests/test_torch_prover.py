@@ -52,7 +52,7 @@ def _eq(j, t):
 def test_eval_ab_and_h_scalars_match_jax(native):
     res, wit, _ = native
     jp = JaxProver(res.pk)
-    tp = Groth16Prover(from_jax_proving_key(res.pk))
+    tp = Groth16Prover(from_jax_proving_key(res.pk), device="cpu")
     jw = jnp.asarray(wit)
     tw = torch.from_numpy(wit.astype(np.int32))
     assert _eq(jp._eval_ab(jw), tp._eval_ab(tw))
@@ -61,7 +61,7 @@ def test_eval_ab_and_h_scalars_match_jax(native):
 
 def test_proof_verifies(native):
     res, wit, pub = native
-    proof = Groth16Prover(from_jax_proving_key(res.pk)).prove(wit, r=7, s=8)
+    proof = Groth16Prover(from_jax_proving_key(res.pk), device="cpu").prove(wit, r=7, s=8)
     assert verify_groth16(res.vk, pub, proof.to_json_dict())
     assert not verify_groth16(res.vk, [pub[0] + 1], proof.to_json_dict())
 
@@ -71,7 +71,7 @@ def test_witness_limbs_are_checked(native):
     bad = wit.astype(np.int64)
     bad[2, 3] = 1 << 16
     with pytest.raises(ValueError):
-        Groth16Prover(from_jax_proving_key(res.pk)).prove(bad, r=1, s=1)
+        Groth16Prover(from_jax_proving_key(res.pk), device="cpu").prove(bad, r=1, s=1)
 
 
 def _random_table_with_dups(n, seed):
@@ -105,7 +105,7 @@ def test_dedup_and_merge_match_jax():
     assert np.array_equal(order, jmerge[0]) and np.array_equal(bounds, jmerge[1]) and nu == jmerge[2]
 
     scalars = np.asarray(random_scalars(n, seed=8))
-    assert np.array_equal(scalars.astype(np.int64), testgen.random_scalars(n, seed=8).numpy())
+    assert np.array_equal(scalars.astype(np.int64), testgen.random_scalars(n, seed=8, device="cpu").numpy())
     jm = JaxProver._merge_scalars(jnp.asarray(scalars), (jnp.asarray(jmerge[0]), jnp.asarray(jmerge[1]), nu))
     tm = Groth16Prover._merge_scalars(
         torch.from_numpy(scalars.astype(np.int32)), (torch.from_numpy(order), torch.from_numpy(bounds), nu)
@@ -134,7 +134,7 @@ def test_prove_with_duplicated_rows_verifies(native):
 
     res, wit, pub = native
     pk2, wit2 = _dup_pk_and_split_witness(res.pk, wit)
-    prover = Groth16Prover(from_jax_proving_key(pk2))
+    prover = Groth16Prover(from_jax_proving_key(pk2), device="cpu")
     assert prover._merge_a is not None
     # the coefficient table reads witness[s]: evaluate with the true witness
     true_w = torch.from_numpy(wit.astype(np.int32))
