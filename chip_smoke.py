@@ -8,7 +8,9 @@ Run from the repository root with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
-2. build: compile the CUDA kernels from keyless_zk_tpu_torch/csrc;
+2. build: compile the CUDA kernels from keyless_zk_tpu_torch/csrc, and
+   print ptxas's registers, spill bytes and stack frame of the K4 and K6
+   kernels from build.log;
 3. the Montgomery product kernel (K1) against its plain PyTorch version on
    the card, Fr and Fq at 2^22 elements with the main path's broadcasts,
    with both times (exact integers: they must be equal);
@@ -26,12 +28,15 @@ Phases, in order; any failure exits non-zero:
    generation, prover construction, one warm-up and three timed proofs
    with per-phase CUDA-event times, each proof checked against the
    discrete-log oracle, and the launch counts of one proof (every kernel of
-   the path > 0). The warm-up proof keeps the inputs of every call of the
-   MSM kernels (K4-K7) and of the reduction (K8, both bodies) with a
-   distinct signature, and each is then run through the kernel and its
-   plain version: equal, with both times. Then the h scalars of the kernel
-   path against the plain versions, and against the butterfly NTT plan on
-   the card, with both plans' iNTT and NTT times and the int8 product's;
+   the path > 0; K6 counts its bucket walk and each sum launch). The
+   warm-up proof keeps the inputs of every call of the MSM kernels (K4-K7)
+   and of the reduction (K8, both bodies) with a distinct signature, and
+   each is then run through the kernel and its plain version: equal, with
+   both times (K4's bucket table, written in place, is compared with its
+   heads and tails; K6's line shows its grids). Then the h scalars of the
+   kernel path against the plain versions, and against the butterfly NTT
+   plan on the card, with both plans' iNTT and NTT times and the int8
+   product's;
 7. the setup path at the production domain: the chain circuit a == b^m
    with m = 2^21 - 4 (domain 2^21, n_vars 2^21 - 2), built with the port's
    ConstraintSystem, `groth16_setup` on the card with pinned toxic values
@@ -392,14 +397,23 @@ def _describe(sig: tuple) -> str:
         return f"N={rest[0][1]}"
     tag, *rest = rest
     if name == "window_scan":
-        (L, V), _, (rows, _), _ = rest
-        return f"{tag} L={L} V={V} table {rows} rows"
+        (L, V), _, (rows, _), _, (_, n_seg) = rest
+        return f"{tag} L={L} V={V} table {rows} rows, {n_seg} buckets"
     if name == "boundary_merge":
         (m,), _, steps = rest
         return f"{tag} m={m} {steps} passes"
     if name == "weighted_bucket_total":
+        from keyless_zk_tpu_torch.ops import cuda_msm
+
         (_, wn, nb), = rest
-        return f"{tag} Wn={wn} NB={nb}"
+        lanes = cuda_msm.bucket_threads(tag, wn, nb)
+        grids, n = [], lanes
+        while n > 1:
+            j = cuda_msm._sum_threads(tag, n)
+            n = -(-n // j)
+            grids.append(f"{wn * n} x {j}")
+        return (f"{tag} Wn={wn} NB={nb}: walk {lanes} lanes per window, {-(-wn * lanes // 128)} blocks of 128; "
+                f"sums {', '.join(grids) or 'none'} (blocks x threads)")
     (_, wn), c = rest
     return f"{tag} Wn={wn} c={c}"
 
@@ -410,7 +424,7 @@ def msm_imad(name: str, args) -> float:
 
     tag = args[0]
     if name == "window_scan":  # one mixed add per stream entry of a finite point
-        _, _, pay, _, tinf = args
+        _, _, pay, _, tinf, _ = args
         return group_imad("madd", tag, int((~tinf[(pay & ((1 << 30) - 1)).long()]).sum()))
     if name == "boundary_merge":  # one add per lane whose partner shares its key, per pass
         _, keys, _, max_steps = args
@@ -426,6 +440,28 @@ def msm_imad(name: str, args) -> float:
     return group_imad("dbl", tag, (wins.shape[1] - 1) * c) + group_imad("add", tag, wins.shape[1] - 1)
 
 
+def scan_check(records, args, note) -> None:
+    """K4 against its plain version. The scan writes its bucket table in
+    place: each side starts from its own copy of the captured table, and
+    the tables are compared with the heads and tails. The timed launches
+    then write into the captured table itself (each writes the same
+    columns)."""
+    from keyless_zk_tpu_torch.ops import cuda_msm
+
+    tag, keys, pay, table, tinf, tbl = args
+    tbl0 = tbl.clone()  # the table as the main path handed it over
+    got_tbl = tbl0.clone()
+    got = cuda_msm.window_scan(*args[:-1], got_tbl)
+    want_tbl = tbl0.clone()
+    with plain_kernels():
+        want, plain_ms = cuda_ms(lambda: cuda_msm.window_scan_plain(*args[:-1], want_tbl), warm=False)
+    _, ms = cuda_ms(lambda: cuda_msm.window_scan(*args), reps=3)
+    written = int((got_tbl != tbl0).any(dim=0).sum())
+    moved = nbytes(keys, pay, table, tinf, got) + written * tbl0.shape[0] * tbl0.element_size()
+    record(records, "window_scan", max_abs_err((got_tbl, *got), (want_tbl, *want)), ms, plain_ms,
+           f"{note}, {written} interior buckets written", moved=moved, imad=msm_imad("window_scan", args))
+
+
 def msm_kernel_checks(store: dict, records: dict) -> None:
     """Each captured main-path call of K4-K7 through the kernel and through
     its plain version on the same card tensors: the outputs must be equal."""
@@ -436,6 +472,9 @@ def msm_kernel_checks(store: dict, records: dict) -> None:
             check(any(sig[:2] == (name, tag) for sig in store), f"no main-path call of {name} ({tag}) captured")
     for sig, args in store.items():
         name = sig[0]
+        if name == "window_scan":
+            scan_check(records, args, _describe(sig))
+            continue
         compare(records, name, getattr(cuda_msm, name), getattr(cuda_msm, name + "_plain"), args, _describe(sig),
                 imad=msm_imad(name, args))
 
@@ -672,6 +711,9 @@ def setup_path(dev, counts_out: dict, records: dict, domain_pow: int = 21) -> No
     check(not bad, "a tampered proof verifies")
 
 
+PTXAS_KERNELS = ("window_scan_kernel", "bucket_walk_kernel", "point_sum_kernel")
+
+
 def main() -> int:
     try:
         import torch
@@ -701,6 +743,10 @@ def main() -> int:
         lib, secs = _build.build()
         _build.library()
         log(f"build: {secs:.1f} s -> {lib}")
+        report = _build.ptxas_report((lib.parent / "build.log").read_text(), PTXAS_KERNELS)
+        log("ptxas (K4, K6): " + json.dumps(report))
+        check(all(any(k.startswith(name) for k in report) for name in PTXAS_KERNELS),
+              "build.log lacks the ptxas report of a K4 or K6 kernel")
         mont_mul_checks(dev, records)
         counts[None] = {"curve_add": k3_checks(dev, records)}
         small_proof(dev)

@@ -8,9 +8,16 @@
 // those of the JAX package, so a kernel that adds in the same order as its
 // JAX counterpart gives the same Jacobian coordinates, bit for bit.
 //
-// The group-law functions are __noinline__: inlined, the G2 kernels grew to
-// hundreds of thousands of instructions that took ptxas minutes to
-// schedule; a call costs little beside the 11-33 field products inside.
+// Inlining depends on the field. For G1 every group-law function is a
+// __forceinline__ template, so a kernel's accumulator stays in registers
+// across its loop: as calls, each step passed and returned its points
+// through the local-memory stack. For G2 each function is a __noinline__
+// overload of the same body: inlined, the G2 kernels grew to hundreds of
+// thousands of instructions that took ptxas minutes to schedule, and a call
+// costs little beside the 33 Fq products of a G2 add (the kernels build in
+// ~21 s on the H100's host, PERF.md). The field products inside are calls
+// for both fields (field.cuh `gmul`, `gsqr`), which keeps each kernel's
+// loop small (field.cuh says what inlining them cost).
 //
 // A point is three coordinates in registers (24 words for G1, 48 for G2);
 // infinity is z == 0. At the kernel boundary a point is 3 * R rows of
@@ -26,6 +33,13 @@ template <class F>
 struct Jac {
   F x, y, z;
 };
+
+// the G2 calls (defined at the end, after the bodies they call)
+static __device__ __noinline__ Jac<Fq2> dbl_core(const Jac<Fq2>& p);
+static __device__ __noinline__ Jac<Fq2> madd_core(const Jac<Fq2>& p, const Fq2& x2, const Fq2& y2, bool q_inf);
+static __device__ __noinline__ Jac<Fq2> dbl_affine_core(const Fq2& x, const Fq2& y);
+static __device__ __noinline__ Jac<Fq2> madd_complete(const Jac<Fq2>& p, const Fq2& x2, const Fq2& y2, bool q_inf);
+static __device__ __noinline__ Jac<Fq2> add_core(const Jac<Fq2>& p, const Jac<Fq2>& q);
 
 template <class F>
 __device__ __forceinline__ Jac<F> jac_select(bool c, const Jac<F>& a, const Jac<F>& b) {
@@ -53,19 +67,19 @@ __device__ __forceinline__ void store_jac(int32_t* base, long long stride, long 
 }
 
 template <class F>
-__device__ __noinline__ Jac<F> dbl_core(const Jac<F>& p) {
-  F A = sqr(p.x);
-  F B = sqr(p.y);
-  F C = sqr(B);
-  F t = sub(sub(sqr(add(p.x, B)), A), C);
+__device__ __forceinline__ Jac<F> dbl_core(const Jac<F>& p) {
+  F A = gsqr(p.x);
+  F B = gsqr(p.y);
+  F C = gsqr(B);
+  F t = sub(sub(gsqr(add(p.x, B)), A), C);
   F D = add(t, t);
   F E = add(add(A, A), A);
-  F Ff = sqr(E);
+  F Ff = gsqr(E);
   F x3 = sub(Ff, add(D, D));
   F c8 = add(add(C, C), add(C, C));
   c8 = add(c8, c8);
-  F y3 = sub(mul(E, sub(D, x3)), c8);
-  F z3 = mul(add(p.y, p.y), p.z);
+  F y3 = sub(gmul(E, sub(D, x3)), c8);
+  F z3 = gmul(add(p.y, p.y), p.z);
   return {x3, y3, z3};
 }
 
@@ -73,20 +87,20 @@ __device__ __noinline__ Jac<F> dbl_core(const Jac<F>& p) {
 // P == +-Q test.
 template <class F>
 __device__ __forceinline__ Jac<F> madd_formula(const Jac<F>& p, const F& x2, const F& y2, F& h, F& rr) {
-  F z1z1 = sqr(p.z);
-  F u2 = mul(x2, z1z1);
-  F s2 = mul(mul(y2, p.z), z1z1);
+  F z1z1 = gsqr(p.z);
+  F u2 = gmul(x2, z1z1);
+  F s2 = gmul(gmul(y2, p.z), z1z1);
   h = sub(u2, p.x);
   rr = sub(s2, p.y);
   F r2 = add(rr, rr);
-  F hh = sqr(h);
+  F hh = gsqr(h);
   F i4 = add(add(hh, hh), add(hh, hh));
-  F j = mul(h, i4);
-  F v = mul(p.x, i4);
-  F x3 = sub(sub(sqr(r2), j), add(v, v));
-  F yj = mul(p.y, j);
-  F y3 = sub(mul(r2, sub(v, x3)), add(yj, yj));
-  F z3 = sub(sub(sqr(add(p.z, h)), z1z1), hh);
+  F j = gmul(h, i4);
+  F v = gmul(p.x, i4);
+  F x3 = sub(sub(gsqr(r2), j), add(v, v));
+  F yj = gmul(p.y, j);
+  F y3 = sub(gmul(r2, sub(v, x3)), add(yj, yj));
+  F z3 = sub(sub(gsqr(add(p.z, h)), z1z1), hh);
   return {x3, y3, z3};
 }
 
@@ -96,7 +110,7 @@ __device__ __forceinline__ Jac<F> madd_formula(const Jac<F>& p, const F& x2, con
 // deduplicated tables of points with random discrete logs; P == Q gives a
 // wrong result, not an error.
 template <class F>
-__device__ __noinline__ Jac<F> madd_core(const Jac<F>& p, const F& x2, const F& y2, bool q_inf) {
+__device__ __forceinline__ Jac<F> madd_core(const Jac<F>& p, const F& x2, const F& y2, bool q_inf) {
   F h, rr;
   Jac<F> out = madd_formula(p, x2, y2, h, rr);
   // the order of jacobian.py: with both at infinity the result is p
@@ -108,17 +122,17 @@ __device__ __noinline__ Jac<F> madd_core(const Jac<F>& p, const F& x2, const F& 
 // Doubling of an affine point (z == 1), one product cheaper than dbl_core
 // (pallas_ec.dbl_affine_core): the P == Q branch of madd_complete.
 template <class F>
-__device__ __noinline__ Jac<F> dbl_affine_core(const F& x, const F& y) {
-  F A = sqr(x);
-  F B = sqr(y);
-  F C = sqr(B);
-  F t = sub(sub(sqr(add(x, B)), A), C);
+__device__ __forceinline__ Jac<F> dbl_affine_core(const F& x, const F& y) {
+  F A = gsqr(x);
+  F B = gsqr(y);
+  F C = gsqr(B);
+  F t = sub(sub(gsqr(add(x, B)), A), C);
   F D = add(t, t);
   F E = add(add(A, A), A);
-  F x3 = sub(sqr(E), add(D, D));
+  F x3 = sub(gsqr(E), add(D, D));
   F c8 = add(add(C, C), add(C, C));
   c8 = add(c8, c8);
-  F y3 = sub(mul(E, sub(D, x3)), c8);
+  F y3 = sub(gmul(E, sub(D, x3)), c8);
   return {x3, y3, add(y, y)};
 }
 
@@ -128,7 +142,7 @@ __device__ __noinline__ Jac<F> dbl_affine_core(const F& x, const F& y) {
 // (so both at infinity give (x2, y2, 0)); q at infinity alone gives p.
 // The doubling runs only in the lanes that need it.
 template <class F>
-__device__ __noinline__ Jac<F> madd_complete(const Jac<F>& p, const F& x2, const F& y2, bool q_inf) {
+__device__ __forceinline__ Jac<F> madd_complete(const Jac<F>& p, const F& x2, const F& y2, bool q_inf) {
   F h, rr;
   Jac<F> out = madd_formula(p, x2, y2, h, rr);
   bool p_inf = is_zero(p.z);
@@ -140,24 +154,24 @@ __device__ __noinline__ Jac<F> madd_complete(const Jac<F>& p, const F& x2, const
 
 // Complete Jacobian + Jacobian add
 template <class F>
-__device__ __noinline__ Jac<F> add_core(const Jac<F>& p, const Jac<F>& q) {
-  F z1z1 = sqr(p.z);
-  F z2z2 = sqr(q.z);
-  F u1 = mul(p.x, z2z2);
-  F u2 = mul(q.x, z1z1);
-  F s1 = mul(mul(p.y, q.z), z2z2);
-  F s2 = mul(mul(q.y, p.z), z1z1);
+__device__ __forceinline__ Jac<F> add_core(const Jac<F>& p, const Jac<F>& q) {
+  F z1z1 = gsqr(p.z);
+  F z2z2 = gsqr(q.z);
+  F u1 = gmul(p.x, z2z2);
+  F u2 = gmul(q.x, z1z1);
+  F s1 = gmul(gmul(p.y, q.z), z2z2);
+  F s2 = gmul(gmul(q.y, p.z), z1z1);
   F h = sub(u2, u1);
   F rr = sub(s2, s1);
   F r2 = add(rr, rr);
-  F i4 = sqr(add(h, h));
-  F j = mul(h, i4);
-  F v = mul(u1, i4);
-  F x3 = sub(sub(sqr(r2), j), add(v, v));
-  F s1j = mul(s1, j);
-  F y3 = sub(mul(r2, sub(v, x3)), add(s1j, s1j));
-  F zz = sub(sub(sqr(add(p.z, q.z)), z1z1), z2z2);
-  F z3 = mul(zz, h);
+  F i4 = gsqr(add(h, h));
+  F j = gmul(h, i4);
+  F v = gmul(u1, i4);
+  F x3 = sub(sub(gsqr(r2), j), add(v, v));
+  F s1j = gmul(s1, j);
+  F y3 = sub(gmul(r2, sub(v, x3)), add(s1j, s1j));
+  F zz = sub(sub(gsqr(add(p.z, q.z)), z1z1), z2z2);
+  F z3 = gmul(zz, h);
   Jac<F> out = {x3, y3, z3};
 
   bool p_inf = is_zero(p.z);
@@ -167,5 +181,15 @@ __device__ __noinline__ Jac<F> add_core(const Jac<F>& p, const Jac<F>& q) {
   if (q_inf) out = p;
   return out;
 }
+
+static __device__ __noinline__ Jac<Fq2> dbl_core(const Jac<Fq2>& p) { return dbl_core<Fq2>(p); }
+static __device__ __noinline__ Jac<Fq2> madd_core(const Jac<Fq2>& p, const Fq2& x2, const Fq2& y2, bool q_inf) {
+  return madd_core<Fq2>(p, x2, y2, q_inf);
+}
+static __device__ __noinline__ Jac<Fq2> dbl_affine_core(const Fq2& x, const Fq2& y) { return dbl_affine_core<Fq2>(x, y); }
+static __device__ __noinline__ Jac<Fq2> madd_complete(const Jac<Fq2>& p, const Fq2& x2, const Fq2& y2, bool q_inf) {
+  return madd_complete<Fq2>(p, x2, y2, q_inf);
+}
+static __device__ __noinline__ Jac<Fq2> add_core(const Jac<Fq2>& p, const Jac<Fq2>& q) { return add_core<Fq2>(p, q); }
 
 }  // namespace kzk

@@ -3,29 +3,47 @@
 //
 // K6 replaces keyless_zk_tpu/ops/pallas_msm.py `weighted_bucket_total`
 // (`_build_accum` + `_build_combine` pallas_calls): per window w,
-// sum_b b * B[w, b]. The TPU walks the table in 1024-bucket register tiles
-// on a sequential grid, then combines its 1024 lanes with suffix scans and
-// ten doublings. Here one block of T threads takes one window (T scales with
-// the bucket count, about NB / 32, up to 256 for G1 and 128 for G2, the
-// shared-memory tree's room): thread t walks its own
-// contiguous bucket range [lo, hi) from the top, keeping the running sum
-// Rs and its integral W (W = sum (b - lo) B_b), so the range contributes
-// W + lo * Rs; each thread forms that with a short double-and-add, and a
-// shared-memory tree sums the threads. ops/cuda_msm.py's plain version
-// runs the same schedule (bit-equal results); the contract
-// (msm_sim.weighted_bucket_total) sums in another order, so against it the
-// results agree as affine points, not as Jacobian coordinates.
+// sum_b b * B[w, b]. The TPU kernel walks the table in 1024-bucket register
+// tiles on a sequential grid, then combines its 1024 lanes with suffix
+// scans and ten doublings. Here, as there, lanes interleave: window w is
+// split over T lanes (a power of two, ops/cuda_msm.py `bucket_threads`),
+// bucket b = s * T + l goes to lane l at slab s, and
+//   sum_b b * B_b = sum_l (T * W_l + l * R_l),
+//   R_l = sum_s B[s T + l],  W_l = sum_s s * B[s T + l].
+// `bucket_walk_kernel` gives every lane one thread, Wn * T threads over the
+// card: each walks its slabs from the top, adding the running sum R into W
+// before adding the bucket (so W ends as sum_s s B, the TPU's W - R), then
+// forms its own T * W_l + l * R_l by a joint double-and-add (log2 T
+// doublings, an add of R_l per set bit of l). Neighbouring lanes are
+// neighbouring threads and read neighbouring columns; buckets past NB read
+// as infinity; bucket 0 (lane 0, slab 0) keeps weight 0. The window total
+// is then a plain sum over its T lanes: `point_sum_kernel` sums groups of J
+// points by a shared-memory halving tree, once per factor J (one or two
+// more launches at the main path's sizes).
+//
+// ops/cuda_msm.py's plain version runs the same schedule (bit-equal
+// results); the contract (msm_sim.weighted_bucket_total) sums in another
+// order, so against it the results agree as affine points, not as Jacobian
+// coordinates.
 //
 // K7 replaces `horner_total` (`_build_horner`): sum_w 2^(c*w) * W_w over at
 // most a few dozen windows. It is one thread doing c doublings and one add
 // per window from the top (the order of msm._horner_windows, so it matches
 // msm_sim.horner_total bit for bit).
 //
-// Bound on the H100: both are latency chains of complete adds. K6 does
-// about 2 * NB / T dependent adds per thread with only Wn blocks in flight
-// (16 blocks for the dense MSM), so it uses a sliver of the card; K7 is a
-// single thread. Splitting each window over several blocks is left for a
-// later change.
+// Bound on the H100: K6 is integer multiply-adds, two complete adds per
+// bucket, and a latency chain per thread: a group add is 16 Montgomery
+// products whose carry chains run one dependent instruction after another.
+// The first Hopper design gave one block to a window (16-22 blocks on 132
+// SMs), each thread a contiguous bucket range (uncoalesced reads) and a
+// chain of ~2 NB / 256 dependent adds (12 ms at 16 x 32769 buckets,
+// PERF.md). A running-sum combine of the lanes inside one block per window,
+// as the TPU kernel combines, would still run a chain of ~80 dependent
+// group ops on 16-22 blocks. Here the longest chain is the walk's
+// 2 * ceil(NB / T) adds plus log2 T doublings and their adds, on ~2^15
+// threads, and log2 J adds per sum launch; the field products are calls
+// (field.cuh `gmul`), which keeps the walk's loop small (inlined, it took
+// 2.3-2.8x as long). K7 is a single thread, a latency chain.
 
 #include <cuda_runtime.h>
 
@@ -33,40 +51,49 @@
 
 using namespace kzk;
 
+// tbl: (3R, Wn, NB); g: (3R, Wn, T) = T * W_l + l * R_l per window and lane
 template <class F>
-__device__ __forceinline__ Jac<F> scalar_mul_small(const Jac<F>& p, unsigned long long k) {
-  Jac<F> acc = jac_infinity<F>();
-  if (k == 0) return acc;
-  for (int bit = 63 - __clzll(k); bit >= 0; bit--) {
-    acc = dbl_core(acc);
-    if ((k >> bit) & 1ull) acc = add_core(acc, p);
+__global__ void __launch_bounds__(128)
+bucket_walk_kernel(const int32_t* __restrict__ tbl, int32_t* __restrict__ g, long long Wn, long long NB,
+                   long long T, int log2T) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long lanes = Wn * T;
+  if (i >= lanes) return;
+  const long long w = i / T, l = i % T;
+  const long long S = (NB + T - 1) / T;
+  Jac<F> rs = jac_infinity<F>(), ws = jac_infinity<F>();
+  for (long long s = S - 1; s >= 0; s--) {
+    ws = add_core(ws, rs);
+    const long long b = s * T + l;
+    if (b < NB) rs = add_core(rs, load_jac<F>(tbl, Wn * NB, w * NB + b));
   }
-  return acc;
+  // T * ws + l * rs: ws stands for the bit of T, then one doubling per
+  // lower bit, adding rs where l has the bit
+  for (int bit = log2T - 1; bit >= 0; bit--) {
+    ws = dbl_core(ws);
+    if ((l >> bit) & 1) ws = add_core(ws, rs);
+  }
+  store_jac(g, lanes, i, ws);
 }
 
-template <class F, int TMAX>
-__global__ void __launch_bounds__(TMAX)
-bucket_total_kernel(const int32_t* __restrict__ tbl, int32_t* __restrict__ out, long long Wn, long long NB) {
-  __shared__ Jac<F> part[TMAX];
-  const int T = blockDim.x;  // a power of two <= TMAX, chosen by the wrapper
-  const long long w = blockIdx.x;
-  const int t = threadIdx.x;
-  const long long seg = (NB + T - 1) / T;
-  const long long lo = t * seg;
-  const long long hi = lo + seg < NB ? lo + seg : NB;
-  const long long stride = Wn * NB;
-  Jac<F> rs = jac_infinity<F>(), wsum = jac_infinity<F>();
-  for (long long b = hi - 1; b >= lo; b--) {
-    wsum = add_core(wsum, rs);
-    rs = add_core(rs, load_jac<F>(tbl, stride, w * NB + b));
-  }
-  part[t] = add_core(wsum, scalar_mul_small(rs, (unsigned long long)(lo < NB ? lo : 0)));
+// in: (3R, Wn, n) points; out: (3R, Wn, Q), Q = ceil(n / J): block (w, q)
+// sums in[w, q*J : q*J + J) (infinity past n) by a halving tree.
+template <class F, int JMAX>
+__global__ void __launch_bounds__(JMAX)
+point_sum_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long Wn, long long n) {
+  __shared__ Jac<F> part[JMAX];
+  const int J = blockDim.x;
+  const long long Q = (n + J - 1) / J;
+  const long long w = blockIdx.x / Q, q = blockIdx.x % Q;
+  const int j = threadIdx.x;
+  const long long i = q * J + j;
+  part[j] = i < n ? load_jac<F>(in, Wn * n, w * n + i) : jac_infinity<F>();
   __syncthreads();
-  for (int s = T / 2; s > 0; s >>= 1) {
-    if (t < s) part[t] = add_core(part[t], part[t + s]);
+  for (int s = J / 2; s > 0; s >>= 1) {
+    if (j < s) part[j] = add_core(part[j], part[j + s]);
     __syncthreads();
   }
-  if (t == 0) store_jac(out, Wn, w, part[0]);
+  if (j == 0) store_jac(out, Wn * Q, w * Q + q, part[0]);
 }
 
 template <class F>
@@ -80,16 +107,31 @@ __global__ void horner_kernel(const int32_t* __restrict__ wins, int32_t* __restr
   store_jac(out, 1, 0, acc);
 }
 
-// tbl: (3R, Wn, NB) int32 bucket planes; out: (3R, Wn); T threads per
-// window (a power of two, at most 256 for G1 and 128 for G2).
-extern "C" int kzk_weighted_bucket_total(const void* tbl, void* out, long long Wn, long long NB, int T, int g2,
-                                         void* stream) {
+// tbl: (3R, Wn, NB) int32 bucket planes; g: (3R, Wn, T) int32, the lanes'
+// weighted totals. T lanes per window, a power of two (2^log2T).
+extern "C" int kzk_bucket_walk(const void* tbl, void* g, long long Wn, long long NB, long long T, int log2T,
+                               int g2, void* stream) {
   if (Wn == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const int threads = 128;
+  const long long blocks = (Wn * T + threads - 1) / threads;
   if (g2)
-    bucket_total_kernel<Fq2, 128><<<Wn, T, 0, s>>>((const int32_t*)tbl, (int32_t*)out, Wn, NB);
+    bucket_walk_kernel<Fq2><<<blocks, threads, 0, s>>>((const int32_t*)tbl, (int32_t*)g, Wn, NB, T, log2T);
   else
-    bucket_total_kernel<Fp<FqMod>, 256><<<Wn, T, 0, s>>>((const int32_t*)tbl, (int32_t*)out, Wn, NB);
+    bucket_walk_kernel<Fp<FqMod>><<<blocks, threads, 0, s>>>((const int32_t*)tbl, (int32_t*)g, Wn, NB, T, log2T);
+  return (int)cudaGetLastError();
+}
+
+// in: (3R, Wn, n); out: (3R, Wn, ceil(n / J)); J threads per block, a power
+// of two, at most 256 (G1) or 128 (G2).
+extern "C" int kzk_point_sum(const void* in, void* out, long long Wn, long long n, int J, int g2, void* stream) {
+  if (Wn == 0 || n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long blocks = Wn * ((n + J - 1) / J);
+  if (g2)
+    point_sum_kernel<Fq2, 128><<<blocks, J, 0, s>>>((const int32_t*)in, (int32_t*)out, Wn, n);
+  else
+    point_sum_kernel<Fp<FqMod>, 256><<<blocks, J, 0, s>>>((const int32_t*)in, (int32_t*)out, Wn, n);
   return (int)cudaGetLastError();
 }
 

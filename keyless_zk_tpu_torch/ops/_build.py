@@ -47,8 +47,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -58,14 +58,15 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> tuple[Path, float]:
+def build(csrc: Path = CSRC) -> tuple[Path, float]:
     """Compile csrc/*.cu into one shared library (cached by source hash).
 
     Returns (library path, seconds spent compiling; 0.0 when cached). The
     .cu files compile in parallel; nvcc's -Xptxas -v report (registers,
-    spills) is kept in build.log beside the library."""
+    spills) is kept in build.log beside the library. `csrc` may name an
+    edited copy of the sources (tools/kernel_variants.py)."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(ARCH.encode())
@@ -77,9 +78,9 @@ def build() -> tuple[Path, float]:
     tmp = BUILD_ROOT / f"tmp-{os.getpid()}-{time.time_ns()}"
     tmp.mkdir(parents=True)
     t0 = time.perf_counter()
-    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{CSRC}"]
+    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{csrc}"]
     procs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(csrc.glob("*.cu")):
         obj = tmp / (src.stem + ".o")
         log = open(tmp / (src.stem + ".log"), "w")
         procs.append((src, log, subprocess.Popen(
@@ -110,14 +111,20 @@ def build() -> tuple[Path, float]:
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call; argtypes declared."""
-    lib = ctypes.CDLL(str(build()[0]))
+    """The loaded kernel library, built on first call."""
+    return load(build()[0])
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library with its entry points' argtypes declared."""
+    lib = ctypes.CDLL(str(path))
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     signatures = {
         "kzk_mont_mul": [P, P, P, LL, LL, I, P],
-        "kzk_window_scan": [P, P, P, P, P, P, P, P, P, LL, LL, I, P],
+        "kzk_window_scan": [P, P, P, P, P, LL, P, P, P, P, LL, LL, I, P],
         "kzk_boundary_merge_pass": [P, P, P, LL, LL, I, P],
-        "kzk_weighted_bucket_total": [P, P, LL, LL, I, I, P],
+        "kzk_bucket_walk": [P, P, LL, LL, LL, I, I, P],
+        "kzk_point_sum": [P, P, LL, LL, I, I, P],
         "kzk_horner_total": [P, P, LL, I, I, P],
         "kzk_redc": [P, P, P, LL, P],
         "kzk_curve_madd": [P, P, P, P, P, P, P, P, P, LL, LL, I, P],
@@ -135,3 +142,28 @@ def check(err: int, name: str) -> None:
     """Raise if a kernel's C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def ptxas_report(log_text: str, kernels) -> dict:
+    """Registers, spill bytes and stack frame of each kernel whose mangled
+    name contains one of `kernels`, per field ("<name> g1" / "<name> g2"),
+    from nvcc's -Xptxas -v output (build.log), with the 128-thread blocks
+    per SM that its registers allow."""
+    out: dict = {}
+    entry = props = None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Function properties for" in line:
+            props = line.rsplit(" ", 1)[-1].strip()
+        elif entry and any(k in entry for k in kernels):
+            key = next(k for k in kernels if k in entry) + (" g1" if "FqMod" in entry else " g2")
+            rec = out.setdefault(key, {})
+            if "bytes stack frame" in line and props == entry:
+                words = line.replace(",", "").split()
+                rec.update(stack_frame=int(words[0]), spill_stores=int(words[4]), spill_loads=int(words[8]))
+            elif "Used" in line and "registers" in line:
+                words = line.split()
+                rec["registers"] = int(words[words.index("Used") + 1])
+                rec["blocks_of_128_per_sm"] = 65536 // (128 * max(rec["registers"], 1))
+    return out

@@ -118,14 +118,16 @@ def _stream(t: torch.Tensor) -> int:
 
 # ---- K4: window scan ----------------------------------------------------------
 
-def window_scan_plain(tag, keys, pay, table, tinf):
-    """Port of msm_sim.window_scan (the complete mixed add, which agrees
-    with the kernel's wherever the kernel's precondition holds). See
-    `window_scan`."""
+def window_scan_plain(tag, keys, pay, table, tinf, tbl):
+    """The kernel's contract in torch (the complete mixed add, which agrees
+    with the kernel's wherever the kernel's precondition holds): per step,
+    the lanes whose run of a non-head bucket id < n_seg just ended write
+    its total into that column of `tbl`. See `window_scan`."""
     curve = curve_for(tag)
     f = curve.ops
     R = rows_for(tag)
     L, V = keys.shape
+    n_seg = tbl.shape[1]
     idx = (pay & ((1 << 30) - 1)).long()
     negs = ((pay >> 30) & 1) == 1
     rows = table[idx]  # (L, V, 2R)
@@ -137,23 +139,20 @@ def window_scan_plain(tag, keys, pay, table, tinf):
     acc, head_pt = inf0, inf0
     cur_key = torch.zeros(V, dtype=torch.int32, device=dev)
     head_key = torch.full((V,), -2, dtype=torch.int32, device=dev)
-    is_head = torch.zeros(V, dtype=torch.bool, device=dev)
-    emits = []
+    is_head = torch.ones(V, dtype=torch.bool, device=dev)
     for t in range(L):
         k, q_inf = keys[t], ginf[t]
         x2 = gx[t]
         y2 = f.select(negs[t], f.neg(gy[t]), gy[t])
-        emits.append(acc)  # pre-add accumulator state
         if t == 0:
             same = torch.zeros(V, dtype=torch.bool, device=dev)
-            head_key = torch.full((V,), -2, dtype=torch.int32, device=dev)
-            head_pt = inf0
-            is_head = torch.ones(V, dtype=torch.bool, device=dev)
         else:
             same = k == cur_key
             to_head = ~same & is_head
             head_key = torch.where(to_head, cur_key, head_key)
             head_pt = curve.select(to_head, acc, head_pt)
+            inner = torch.nonzero(~same & ~is_head & (cur_key >= 0) & (cur_key < n_seg)).squeeze(1)
+            tbl[:, cur_key[inner].long()] = point_to_planes(JacPoint(*(c[inner] for c in acc)), tag)
             is_head = is_head & same
         grown = curve.add_mixed(acc, x2, y2, q_inf)
         fresh = curve.from_affine(x2, y2, q_inf)
@@ -163,45 +162,45 @@ def window_scan_plain(tag, keys, pay, table, tinf):
     tail_pt = curve.select(~is_head, acc, curve.infinity((V,), dev))
     head_key = torch.where(is_head, cur_key, head_key)
     head_pt = curve.select(is_head, acc, head_pt)
-    emit = JacPoint(*(torch.stack(c) for c in zip(*emits)))
-    return (
-        point_to_planes(emit, tag),
-        head_key,
-        point_to_planes(head_pt, tag),
-        tail_key.int(),
-        point_to_planes(tail_pt, tag),
-    )
+    return head_key, point_to_planes(head_pt, tag), tail_key.int(), point_to_planes(tail_pt, tag)
 
 
 @_build.counted
-def window_scan(tag, keys, pay, table, tinf):
-    """Scan one chunk of the sorted stream with V lanes.
+def window_scan(tag, keys, pay, table, tinf, tbl):
+    """Scan the sorted stream with V lanes; write the interior bucket totals
+    into `tbl` in place.
 
     keys, pay: (L, V) int32, slab-major (entry t*V + l is slab t of lane l);
+    keys are flat bucket ids, sorted along each lane and across lanes;
     pay = point-table row | negate << 30. table: (n+1, 2R) int32 affine
-    x||y limb rows (Montgomery); tinf: (n+1,) bool.
+    x||y limb rows (Montgomery); tinf: (n+1,) bool. tbl: (3R, n_seg) int32
+    bucket table, updated in place: a run that ends inside its lane and is
+    not the lane's first run holds a whole bucket, and its total is written
+    to column `key` (ids >= n_seg are skipped). Other columns are left as
+    they were.
 
-    Returns (emit (3R, L, V) -- slab t holds lane l's pre-add accumulator;
-    head_key (V,); head (3R, V); tail_key (V,); tail (3R, V)). A lane's
-    head is its first run (key -2 if it never ended inside the lane, then
-    overwritten by the whole-lane run); its tail is its last run, or key -1
-    and infinity if one run spans the lane.
+    Returns (head_key (V,); head (3R, V); tail_key (V,); tail (3R, V)). A
+    lane's head is its first run (key -2 if it never ended inside the lane,
+    then overwritten by the whole-lane run); its tail is its last run, or
+    key -1 and infinity if one run spans the lane.
 
     Precondition of the kernel: no run's partial sum equals the next point
     of its run (csrc/ec.cuh madd_core takes no P == Q doubling), which holds
     for deduplicated tables of points with random discrete logs.
     """
     if keys.device.type == "cpu":
-        return window_scan_plain(tag, keys, pay, table, tinf)
-    _require_cuda("window_scan", keys, pay, table, tinf)
-    _require_dtype("window_scan", torch.int32, keys, pay, table)
+        return window_scan_plain(tag, keys, pay, table, tinf, tbl)
+    _require_cuda("window_scan", keys, pay, table, tinf, tbl)
+    _require_dtype("window_scan", torch.int32, keys, pay, table, tbl)
     _require_dtype("window_scan", torch.bool, tinf)
     R = rows_for(tag)
     L, V = keys.shape
-    if pay.shape != keys.shape or table.dim() != 2 or table.shape[1] != 2 * R or tinf.shape != (table.shape[0],):
+    if (pay.shape != keys.shape or table.dim() != 2 or table.shape[1] != 2 * R
+            or tinf.shape != (table.shape[0],) or tbl.dim() != 2 or tbl.shape[0] != 3 * R):
         raise ValueError("window_scan: shape mismatch")
+    if table.data_ptr() % 16:
+        raise ValueError("window_scan: the point table must be 16-byte aligned (the kernel reads rows as int4)")
     dev = keys.device
-    emit = torch.empty((3 * R, L, V), dtype=torch.int32, device=dev)
     hk = torch.empty(V, dtype=torch.int32, device=dev)
     tk = torch.empty(V, dtype=torch.int32, device=dev)
     hpt = torch.empty((3 * R, V), dtype=torch.int32, device=dev)
@@ -209,12 +208,12 @@ def window_scan(tag, keys, pay, table, tinf):
     lib = _build.library()
     window_scan.launches += 1
     err = lib.kzk_window_scan(
-        keys.data_ptr(), pay.data_ptr(), table.data_ptr(), tinf.data_ptr(),
-        emit.data_ptr(), hk.data_ptr(), hpt.data_ptr(), tk.data_ptr(), tpt.data_ptr(),
+        keys.data_ptr(), pay.data_ptr(), table.data_ptr(), tinf.data_ptr(), tbl.data_ptr(), tbl.shape[1],
+        hk.data_ptr(), hpt.data_ptr(), tk.data_ptr(), tpt.data_ptr(),
         L, V, int(tag == "fq2"), _stream(keys),
     )
     _build.check(err, "window_scan")
-    return emit, hk, hpt, tk, tpt
+    return hk, hpt, tk, tpt
 
 
 # ---- K5: boundary merge -------------------------------------------------------
@@ -262,79 +261,116 @@ def boundary_merge(tag, keys, pts, max_steps: int):
 
 # ---- K6: weighted bucket total ------------------------------------------------
 
-# most threads per window of csrc/msm_reduce.cu bucket_total_kernel (its
-# shared-memory tree holds one point per thread)
-_BUCKET_THREADS_MAX = {"fq": 256, "fq2": 128}
+# lanes over all windows that K6's walk aims for, and the fewest buckets a
+# lane walks; and the most threads of a sum block (its shared-memory tree
+# holds one point per thread). More lanes shorten each thread's chain of
+# adds but cost each lane log2(T) doublings for its weight: on the H100
+# 2^15 lanes in all, four buckets or more per lane, timed best at the main
+# path's shapes (16 x 32769 and 22 x 2049 buckets, G1 and G2;
+# tools/kernel_variants.py, PERF.md).
+_BUCKET_LANES = 1 << 15
+_MIN_BUCKETS_PER_LANE = 4
+_SUM_THREADS_MAX = {"fq": 256, "fq2": 128}
 
 
-def bucket_threads(tag: str, nb: int) -> int:
-    """Threads (lanes) per window for K6: about 32 buckets per lane, a power
-    of two, at most the kernel's tree size."""
+def bucket_threads(tag: str, wn: int, nb: int) -> int:
+    """Lanes per window for K6: the largest power of two with at most
+    `_BUCKET_LANES` lanes over all windows and `_MIN_BUCKETS_PER_LANE`
+    buckets or more per lane (at least one lane)."""
     t = 1
-    while t * 2 <= min(nb // 32, _BUCKET_THREADS_MAX[tag]):
+    while t * 2 <= min(_BUCKET_LANES // max(wn, 1), nb // _MIN_BUCKETS_PER_LANE):
         t *= 2
     return t
 
 
-def weighted_bucket_total_plain(tag, tbl):
-    """sum_b b * B[w, b] by the kernel's own schedule, vectorized: lane t of
-    T walks buckets [t*seg, (t+1)*seg) from the top keeping the running sum
-    and its integral, adds lo * (running sum) by double-and-add, and the
-    lanes are summed by a halving tree. Same adds in the same order as the
-    kernel, so the two agree bit for bit; the contract
-    (msm_sim.weighted_bucket_total, a suffix scan) sums in another order
-    and agrees as affine points."""
-    curve = curve_for(tag)
-    f = curve.ops
-    cd = f.coord_ndim
-    _, wn, nb = tbl.shape
-    T = bucket_threads(tag, nb)
-    seg = -(-nb // T)
-    # infinity padding at the top of the last lanes is an exact no-op: the
-    # running sums stay all-zero until the lane's first real bucket
-    pts = planes_to_point(torch.nn.functional.pad(tbl, (0, T * seg - nb)).reshape(tbl.shape[0], wn, T, seg), tag)
-    dev = tbl.device
-    rs = curve.infinity((wn, T), dev)
-    ws = curve.infinity((wn, T), dev)
-    for j in range(seg - 1, -1, -1):
-        ws = curve.add(ws, rs)
-        rs = curve.add(rs, JacPoint(*(c.select(-(cd + 1), j) for c in pts)))
-    lo = torch.arange(T, device=dev) * seg
-    lo = torch.where(lo < nb, lo, 0)
-    acc = curve.infinity((wn, T), dev)
-    for bit in range(int(lo.max()).bit_length() - 1, -1, -1):
-        acc = curve.dbl(acc)
-        acc = curve.select((((lo >> bit) & 1) == 1).expand(wn, T), curve.add(acc, rs), acc)
-    part = curve.add(ws, acc)
-    s = T // 2
+def _sum_threads(tag: str, n: int) -> int:
+    """Threads of one sum block over n points: a power of two."""
+    return min(1 << max(n - 1, 0).bit_length(), _SUM_THREADS_MAX[tag])
+
+
+def _sum_groups_plain(curve, tag, planes, wn: int, n: int):
+    """(3R, wn * n) -> (3R, wn * ceil(n / J)): each group of J points (past n:
+    infinity) summed by the kernel's halving tree."""
+    cd = curve.ops.coord_ndim
+    J = _sum_threads(tag, n)
+    Q = -(-n // J)
+    pts = planes.reshape(planes.shape[0], wn, n)
+    pts = torch.nn.functional.pad(pts, (0, Q * J - n)).reshape(planes.shape[0], wn * Q, J)
+    part = planes_to_point(pts, tag)
+    s = J // 2
     while s:
         part = curve.add(
             JacPoint(*(c.narrow(-(cd + 1), 0, s) for c in part)),
             JacPoint(*(c.narrow(-(cd + 1), s, s) for c in part)),
         )
         s //= 2
-    return point_to_planes(JacPoint(*(c.select(-(cd + 1), 0) for c in part)), tag)
+    return point_to_planes(JacPoint(*(c.select(-(cd + 1), 0) for c in part)), tag), Q
+
+
+def weighted_bucket_total_plain(tag, tbl):
+    """sum_b b * B[w, b] by the kernel's own schedule, vectorized (see
+    csrc/msm_reduce.cu): T interleaved lanes walk their slabs from the top
+    keeping R_l and W_l, each forms T * W_l + l * R_l by the same joint
+    double-and-add, and groups of J lanes are summed by halving trees until
+    one point per window is left. Same adds in the same order as the
+    kernels, so the two agree bit for bit; the contract
+    (msm_sim.weighted_bucket_total) sums in another order and agrees as
+    affine points."""
+    curve = curve_for(tag)
+    cd = curve.ops.coord_ndim
+    rows3, wn, nb = tbl.shape
+    T = bucket_threads(tag, wn, nb)
+    S = -(-nb // T)
+    dev = tbl.device
+    # bucket s * T + l is slab s of lane l; the padded buckets are all-zero
+    # infinity, which an add passes over exactly as the kernel's skip does
+    pts = planes_to_point(torch.nn.functional.pad(tbl, (0, S * T - nb)).reshape(rows3, wn, S, T), tag)
+    rs = curve.infinity((wn, T), dev)
+    ws = curve.infinity((wn, T), dev)
+    for s in range(S - 1, -1, -1):
+        ws = curve.add(ws, rs)
+        rs = curve.add(rs, JacPoint(*(c.select(-(cd + 2), s) for c in pts)))
+    lane = torch.arange(T, device=dev).expand(wn, T)
+    for bit in range(T.bit_length() - 2, -1, -1):
+        ws = curve.dbl(ws)
+        ws = curve.select(((lane >> bit) & 1) == 1, curve.add(ws, rs), ws)
+    planes, n = point_to_planes(ws, tag).reshape(rows3, wn * T), T
+    while n > 1:
+        planes, n = _sum_groups_plain(curve, tag, planes, wn, n)
+    return planes.reshape(rows3, wn)
 
 
 @_build.counted
 def weighted_bucket_total(tag, tbl):
     """Dense bucket tables (3R, Wn, NB) int32 -> per-window totals (3R, Wn)
-    = sum_b b * B[w, b]. Bucket 0 carries weight 0."""
+    = sum_b b * B[w, b]. Bucket 0 carries weight 0. Each window is split
+    over `bucket_threads` lanes. One launch of the bucket walk, then one
+    sum launch per factor of up to 256 (G1) or 128 (G2) lanes: three at the
+    main path's sizes, each counted."""
     if tbl.device.type == "cpu":
         return weighted_bucket_total_plain(tag, tbl)
     _require_cuda("weighted_bucket_total", tbl)
     _require_dtype("weighted_bucket_total", torch.int32, tbl)
     if tbl.dim() != 3 or tbl.shape[0] != 3 * rows_for(tag):
         raise ValueError("weighted_bucket_total: shape mismatch")
-    _, wn, nb = tbl.shape
-    out = torch.empty((tbl.shape[0], wn), dtype=torch.int32, device=tbl.device)
+    rows3, wn, nb = tbl.shape
+    T = bucket_threads(tag, wn, nb)
+    g2 = int(tag == "fq2")
     lib = _build.library()
+    cur = torch.empty((rows3, wn * T), dtype=torch.int32, device=tbl.device)
     weighted_bucket_total.launches += 1
-    err = lib.kzk_weighted_bucket_total(
-        tbl.data_ptr(), out.data_ptr(), wn, nb, bucket_threads(tag, nb), int(tag == "fq2"), _stream(tbl)
-    )
+    err = lib.kzk_bucket_walk(tbl.data_ptr(), cur.data_ptr(), wn, nb, T, T.bit_length() - 1, g2, _stream(tbl))
     _build.check(err, "weighted_bucket_total")
-    return out
+    n = T
+    while n > 1:
+        J = _sum_threads(tag, n)
+        q = -(-n // J)
+        out = torch.empty((rows3, wn * q), dtype=torch.int32, device=tbl.device)
+        weighted_bucket_total.launches += 1
+        err = lib.kzk_point_sum(cur.data_ptr(), out.data_ptr(), wn, n, J, g2, _stream(tbl))
+        _build.check(err, "weighted_bucket_total")
+        cur, n = out, q
+    return cur.reshape(rows3, wn)
 
 
 # ---- K7: horner over windows --------------------------------------------------

@@ -9,14 +9,18 @@ versions, so this one pipeline serves both devices.
 
 Sizes chosen for the H100 (not carried over from the TPU tuning):
 
-- `_SCAN_LANES` = 2^16 (G1) / 2^15 (G2): one K4 thread per lane; 2^16
-  threads at 128 per block is ~4 resident blocks per SM on 132 SMs, which
-  the scan's register use (a G1 mixed add in 8-word limbs) allows. Each lane
-  walks at least `_MIN_SLABS` entries when the stream is shorter, so small
-  MSMs use fewer lanes.
-- `_CHUNK_ENTRIES` = 2^23 (G1) / 2^22 (G2): each chunk materializes a
-  (3R, L, V) int32 emit buffer of 192 (G1) or 384 (G2) bytes per entry,
-  1.6 GB either way, well inside the card's 80 GB with the tables resident.
+- `_SCAN_LANES`: one K4 thread per lane, and one wave of lanes for the
+  whole stream: 132 SMs x the 128-thread blocks per SM that the scan's
+  registers allow (ptxas's report in build.log). Held to 128 registers
+  for four blocks per SM, the scan spilled and ran slower, in one wave or
+  two (tools/kernel_variants.py `occupancy`, PERF.md).
+  The lane count need not be a power of two: the stream is padded with
+  sentinel entries to whole lanes. No buffer grows with the stream any
+  more (K4 writes the interior bucket totals in place), so there is no
+  chunking: one launch scans every window.
+- `_MIN_SLABS` = 32: each lane walks at least 32 entries, so short streams
+  (the witness MSMs) take fewer lanes; every lane adds two entries to the
+  boundary sequence that K5 merges in up to log2(2V) passes.
 - `fused_window_bits` keeps the JAX cost model's form (n adds per window
   plus ~2.6 * 2^(c-1) for the reduction and a fixed per-window overhead).
 
@@ -36,8 +40,10 @@ from .cuda_msm import planes_to_point, rows_for, tree_reduce_points
 
 SCALAR_BITS = 254
 
-_SCAN_LANES = {"fq": 1 << 16, "fq2": 1 << 15}
-_CHUNK_ENTRIES = {"fq": 1 << 23, "fq2": 1 << 22}
+# one wave of K4: 132 SMs x 2 blocks of 128 threads, the blocks per SM that
+# 65536 registers allow at the registers per thread ptxas reports for
+# window_scan_kernel in build.log (232 for G1, 255 for G2)
+_SCAN_LANES = 132 * 2 * 128
 _MIN_SLABS = 32
 _SMALL_N = 128  # at or below: the direct double-and-add (as the JAX package)
 
@@ -145,34 +151,27 @@ def msm(
     cw = c or fused_window_bits(n)
     total = -(-SCALAR_BITS // cw) * n
     cap = min(_p2(max(_count_nonzero_digits(scalars, cw), 1)), _p2(total))
-    chunk = min(cap, _CHUNK_ENTRIES[tag])
-    v = min(_SCAN_LANES[tag], max(1, chunk // _MIN_SLABS))
-    return _msm_pippenger_fused(
-        points_x, points_y, points_inf, scalars,
-        tag=tag, c=cw, v=v, cap=cap, chunk=chunk,
-    )
+    v = min(_SCAN_LANES, max(1, -(-cap // _MIN_SLABS)))
+    return _msm_pippenger_fused(points_x, points_y, points_inf, scalars, tag=tag, c=cw, v=v, cap=cap)
 
 
-def _msm_pippenger_fused(
-    points_x, points_y, points_inf, scalars, *, tag: str, c: int, v: int, cap: int, chunk: int,
-) -> JacPoint:
+def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c: int, v: int, cap: int) -> JacPoint:
     """Flat-stream Pippenger (port of msm._msm_pippenger_fused, unbatched).
 
     Every (window, element) pair maps to a flat bucket id w * NB + digit;
     zero digits and pads take a sentinel that sorts past the real entries,
     so one per-window sort groups the buckets and the compaction gathers the
-    rows' real prefixes into the first `cap` stream slots. The stream runs
-    through K4 in `chunk`-entry pieces of V lanes; chunk boundaries behave
-    like lane boundaries and resolve in the one global boundary merge (K5).
+    rows' real prefixes into the first `cap` stream slots. The stream,
+    padded to whole lanes, runs through K4 in one launch of `v` lanes, which
+    writes every bucket that lies inside a lane into the bucket table; the
+    buckets that cross lanes resolve in the boundary merge (K5).
     """
     dev = scalars.device
     R = rows_for(tag)
     n = scalars.shape[0]
     V = v
-    if chunk % V or cap % chunk:
-        raise ValueError(f"msm: chunk {chunk} / cap {cap} / lanes {V} do not tile")
-    L = chunk // V
-    n_chunks = cap // chunk
+    L = -(-cap // V)
+    m = L * V  # stream slots: cap padded to whole lanes
 
     keys, negs = extract_digits_signed(scalars, c)  # (Wn, n)
     rows = keys.shape[0]
@@ -195,38 +194,19 @@ def _msm_pippenger_fused(
         # the sentinel bucket n_seg and the table's infinity row n
         nnz_rows = real.sum(dim=1)
         offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(nnz_rows, 0)])
-        pos = torch.arange(cap, device=dev, dtype=torch.int64)
+        pos = torch.arange(m, device=dev, dtype=torch.int64)
         rw = (torch.searchsorted(offs, pos + 1) - 1).clamp(0, rows - 1)
         valid = pos < offs[rows]
         src = torch.where(valid, rw * n + pos - offs[rw], 0)
         fb_s = torch.where(valid, rw * NB + kr_s.reshape(-1)[src], n_seg)
         pay_s = torch.where(valid, pr_s.reshape(-1)[src], n)
-        row_base = offs[:-1]
     else:
         # dense: the row-sorted planes are the stream. A row's sentinel
         # tail lands in the next window's weight-0 bucket 0 (or past the
         # last window), so it is an arithmetic no-op wherever it ends up
         warr = torch.arange(rows, device=dev, dtype=torch.int64)[:, None]
-        fb_s = (warr * NB + kr_s).reshape(-1)
-        pay_s = pr_s.reshape(-1)
-        if cap > rows * n:
-            fb_s = torch.nn.functional.pad(fb_s, (0, cap - rows * n), value=n_seg)
-            pay_s = torch.nn.functional.pad(pay_s, (0, cap - rows * n), value=n)
-        row_base = torch.arange(rows, device=dev, dtype=torch.int64) * n
-
-    # bucket geometry from the sorted digits alone: entry p is slab p % L of
-    # global lane p // L. A bucket whose run starts and ends inside one lane
-    # (not at its first or last slab) is interior: its total is the lane's
-    # pre-add accumulator at the slab after the run's end.
-    q1 = torch.arange(1, NB + 1, device=dev, dtype=torch.int64).expand(rows, NB).contiguous()
-    cnt = torch.searchsorted(kr_s.contiguous(), q1)  # digits <= d per row
-    cnt_prev = torch.nn.functional.pad(cnt[:, :-1], (1, 0))
-    starts = (row_base[:, None] + cnt_prev).reshape(n_seg)
-    ends = (row_base[:, None] + cnt - 1).reshape(n_seg)
-    interior = (ends >= starts) & (starts // L == ends // L) & (starts % L != 0) & (ends % L != L - 1)
-    # a bucket spanning S lanes covers <= 2S consecutive boundary slots
-    lane_span = ends // L - starts // L + 1
-    merge_steps = (2 * max(int(lane_span.max()), 1) - 1).bit_length()
+        fb_s = torch.nn.functional.pad((warr * NB + kr_s).reshape(-1), (0, m - rows * n), value=n_seg)
+        pay_s = torch.nn.functional.pad(pr_s.reshape(-1), (0, m - rows * n), value=n)
 
     table = torch.cat(
         [points_x.reshape(n, R), points_y.reshape(n, R)], dim=1
@@ -234,42 +214,35 @@ def _msm_pippenger_fused(
     table = torch.cat([table, torch.zeros((1, 2 * R), dtype=table.dtype, device=dev)]).int().contiguous()
     tinf = torch.cat([points_inf.bool(), torch.ones(1, dtype=torch.bool, device=dev)]).contiguous()
 
+    # entry p is slab p % L of lane p // L; K4 fills in the interior buckets
     tbl = torch.zeros((3 * R, n_seg), dtype=torch.int32, device=dev)
-    heads, tails = [], []
-    for ci in range(n_chunks):
-        kw = fb_s[ci * chunk : (ci + 1) * chunk].int()
-        pw = pay_s[ci * chunk : (ci + 1) * chunk].int()
-        emit, hk, hpt, tk, tpt = cuda_msm.window_scan(
-            tag,
-            kw.reshape(V, L).T.contiguous(),
-            pw.reshape(V, L).T.contiguous(),
-            table,
-            tinf,
-        )
-        mine = torch.nonzero(interior & (ends // chunk == ci)).squeeze(1)
-        e_loc = ends[mine] - ci * chunk
-        tbl[:, mine] = emit.reshape(3 * R, chunk)[:, (e_loc % L + 1) * V + e_loc // L]
-        heads.append((hk, hpt))
-        tails.append((tk, tpt))
+    hk, hpt, tk, tpt = cuda_msm.window_scan(
+        tag,
+        fb_s.int().reshape(V, L).T.contiguous(),
+        pay_s.int().reshape(V, L).T.contiguous(),
+        table,
+        tinf,
+        tbl,
+    )
 
-    # one global boundary sequence: (head, tail) per global lane, in order
-    m2 = 2 * V * n_chunks
-    bkeys = torch.stack(
-        [torch.stack([h for h, _ in heads]), torch.stack([t for t, _ in tails])], dim=2
-    ).reshape(m2)
+    # the boundary sequence: (head, tail) per lane, in order
+    m2 = 2 * V
+    bkeys = torch.stack([hk, tk], dim=1).reshape(m2)
     bkeys = torch.cummax(bkeys, dim=0).values.int().contiguous()  # fill -1/-2 sentinels
-    bpts = torch.stack(
-        [torch.stack([p for _, p in heads]), torch.stack([p for _, p in tails])], dim=3
-    )  # (nc, 3R, V, 2)
-    bpts = bpts.permute(1, 0, 2, 3).reshape(3 * R, m2).contiguous()
-    merged = cuda_msm.boundary_merge(tag, bkeys, bpts, merge_steps)
+    bpts = torch.stack([hpt, tpt], dim=2).reshape(3 * R, m2).contiguous()
+    # a key's boundary segment of r entries needs ceil(log2 r) passes; only
+    # weighted buckets count (bucket 0 of each window has weight 0, ids >=
+    # n_seg are no buckets)
+    bclip = bkeys.long().clamp(0, n_seg)
+    runs = torch.bincount(bclip, minlength=n_seg + 1)[:n_seg]
+    runs[::NB] = 0
+    merged = cuda_msm.boundary_merge(tag, bkeys, bpts, (max(int(runs.max()), 1) - 1).bit_length())
 
     # overlay the cross-lane bucket totals from the merged segment leaders
-    bclip = bkeys.long().clamp(0, n_seg)
     lpos = torch.full((n_seg + 1,), m2, dtype=torch.int64, device=dev).scatter_reduce(
         0, bclip, torch.arange(m2, device=dev), reduce="amin"
     )[:n_seg]
-    has = torch.nonzero((lpos < m2) & ~interior).squeeze(1)
+    has = torch.nonzero(lpos < m2).squeeze(1)
     tbl[:, has] = merged[:, lpos[has]]
 
     wins = cuda_msm.weighted_bucket_total(tag, tbl.reshape(3 * R, rows, NB))

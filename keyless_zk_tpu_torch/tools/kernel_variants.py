@@ -1,0 +1,291 @@
+"""Time the port's kernels under variants of the shared device code, on one
+NVIDIA GPU. Run from the repository root:
+
+    python3 -m keyless_zk_tpu_torch.tools.kernel_variants
+
+Each variant is a textual edit of the sources, applied to a copy of csrc/
+under build/ and built beside the shipped library:
+
+- `shipped`: the sources as they are (the Montgomery product in carry
+  chains; the group law's products behind a call, field.cuh `gmul`);
+- `inline`: `gmul` inlined at every product of the group law;
+- `wide`: the Montgomery product in 64-bit C arithmetic instead of carry
+  chains (the port's first product), its calls as shipped;
+- `occupancy`: K4's kernel held to 128 registers (`__launch_bounds__(128,
+  4)`: four blocks of 128 threads per SM where the shipped kernel fits two).
+
+Each variant's outputs must equal the shipped library's, bit for bit, on
+the same inputs (chip_smoke.py holds the shipped kernels to their plain
+versions). The inputs are random, at the shapes of the full-width proof's
+MSMs (ops/msm.py): msm_h's 2^25-entry G1 stream over 16 x 32769 buckets,
+scanned by one wave of lanes at two and at four blocks per SM, and a G2
+witness MSM's 2^20-entry stream over 22 x 2049 buckets. Times are
+CUDA-event ms per call (K4's include zeroing its bucket table), the
+variants in order and then in reverse; K6 is also timed at
+several lane counts per window with the shipped library. Per variant the
+script prints the build seconds, ptxas's registers and spills and the SASS
+instruction count of each kernel.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
+from ..fields.torch_field import FR
+from ..ops import _build, cuda_field, cuda_msm, msm, testgen
+
+KERNELS = ("mont_mul_kernel", "window_scan_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
+
+_GMUL = "template <class M>\n__device__ __noinline__ Fp<M> gmul("
+_MUL = "__device__ __forceinline__ Fp<M> mul(const Fp<M>& a, const Fp<M>& b) {\n"
+_WIDE_MUL_BODY = """  uint32_t t[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      c += (uint64_t)a.v[j] * b.v[i] + t[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[8];
+    t[8] = (uint32_t)c;
+    t[9] = (uint32_t)(c >> 32);
+    uint32_t m = t[0] * M::n0;
+    c = ((uint64_t)m * M::p(0) + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; j++) {
+      c += (uint64_t)m * M::p(j) + t[j];
+      t[j - 1] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[8];
+    t[7] = (uint32_t)c;
+    t[8] = t[9] + (uint32_t)(c >> 32);
+  }
+  return fp_csub<M>(t, t[8]);
+"""
+_SCAN_BOUNDS = "__launch_bounds__(128)\nwindow_scan_kernel("
+
+
+def _inline(src: str) -> str:
+    assert _GMUL in src, "field.cuh: gmul not found"
+    return src.replace(_GMUL, _GMUL.replace("__noinline__", "__forceinline__"))
+
+
+def _wide(src: str) -> str:
+    start = src.index(_MUL) + len(_MUL)
+    end = src.index("\n}\n", start) + 1
+    return src[:start] + _WIDE_MUL_BODY + src[end:]
+
+
+def _occupancy(src: str) -> str:
+    assert _SCAN_BOUNDS in src, "msm_scan.cu: window_scan_kernel's launch bounds not found"
+    return src.replace(_SCAN_BOUNDS, _SCAN_BOUNDS.replace("(128)", "(128, 4)"))
+
+
+# name -> [(source file, edit)]
+VARIANTS = {
+    "shipped": [],
+    "inline": [("field.cuh", _inline)],
+    "wide": [("field.cuh", _wide)],
+    "occupancy": [("msm_scan.cu", _occupancy)],
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 3) -> float:
+    """ms per call of fn over `reps` calls, after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sass_sizes(lib_path) -> dict:
+    """SASS instructions per kernel of a built library (cuobjdump -sass)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0]
+        for k in KERNELS:
+            if k in name:
+                out[f"{k} {'g2' if 'Fq2' in name else 'g1'}"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
+    return out
+
+
+def build_variants() -> dict:
+    """Build every variant in parallel; {name: loaded library}."""
+    root = _build.BUILD_ROOT.parent / "variants"
+
+    def one(item):
+        name, edits = item
+        csrc = _build.CSRC
+        if edits:
+            csrc = root / name
+            shutil.rmtree(csrc, ignore_errors=True)
+            shutil.copytree(_build.CSRC, csrc)
+            for file, edit in edits:
+                (csrc / file).write_text(edit((csrc / file).read_text()))
+        return name, _build.build(csrc)
+
+    libs = {}
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        for name, (path, secs) in pool.map(one, VARIANTS.items()):
+            report = _build.ptxas_report((path.parent / "build.log").read_text(), KERNELS)
+            log(f"build {name}: {secs:.1f} s; ptxas {json.dumps(report)}")
+            log(f"  sass instructions {json.dumps(sass_sizes(path))}")
+            libs[name] = _build.load(path)
+    return libs
+
+
+def point_table(tag: str, n_distinct: int, rows: int, dev):
+    """(rows + 1, 2R) affine x||y table of n_distinct random points repeated,
+    and its infinity flags; the last row is the infinity sentinel."""
+    curve = G1_CURVE if tag == "fq" else G2_CURVE
+    R = cuda_msm.rows_for(tag)
+    x, y, inf = testgen.random_points(n_distinct, seed=5, curve=curve, device=dev)
+    t = torch.cat([x.reshape(n_distinct, R), y.reshape(n_distinct, R)], 1).repeat(rows // n_distinct, 1)
+    t = torch.cat([t, torch.zeros((1, 2 * R), dtype=t.dtype, device=dev)]).int().contiguous()
+    tinf = torch.cat([inf.bool().repeat(rows // n_distinct), torch.ones(1, dtype=torch.bool, device=dev)])
+    return t, tinf.contiguous()
+
+
+def scan_stream(n_seg: int, entries: int, V: int, n_rows: int, gen, dev):
+    """K4's (L, V) keys and payloads: sorted random bucket ids, padded with
+    the sentinel n_seg to whole lanes; no entry repeats the table row just
+    before it in its lane (the scan's precondition)."""
+    L = -(-entries // V)
+    ids = torch.sort(torch.randint(0, n_seg, (entries,), generator=gen, device=dev)).values
+    ids = torch.nn.functional.pad(ids, (0, L * V - entries), value=n_seg)
+    lane = torch.randint(0, n_rows, (V, L), generator=gen, device=dev)
+    for _ in range(3):
+        dup = torch.zeros_like(lane, dtype=torch.bool)
+        dup[:, 1:] = lane[:, 1:] == lane[:, :-1]
+        lane = torch.where(dup, (lane + 1) % n_rows, lane)
+    neg = torch.randint(0, 2, (V, L), generator=gen, device=dev)
+    keys = ids.reshape(V, L).int().T.contiguous()
+    pay = (lane | (neg << 30)).int().T.contiguous()
+    return keys, pay
+
+
+def bucket_planes(tag: str, table, tinf, n: int, gen):
+    """(3R, n) Jacobian planes (z = 1, or 0 at infinity) of random table rows."""
+    curve = G1_CURVE if tag == "fq" else G2_CURVE
+    R = cuda_msm.rows_for(tag)
+    idx = torch.randint(0, table.shape[0], (n,), generator=gen, device=table.device)
+    rows = table[idx]
+    z = curve.ops.select(tinf[idx], curve.ops.zeros((n,), table.device), curve.ops.const(1, (n,), table.device))
+    p = JacPoint(cuda_msm.rows_to_coord(rows[:, :R], tag), cuda_msm.rows_to_coord(rows[:, R:], tag), z)
+    return cuda_msm.point_to_planes(p, tag)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_variants: CUDA is not available; this script needs one NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    libs = build_variants()
+    shipped_library = _build.library
+    k6_budget = cuda_msm._BUCKET_LANES, cuda_msm._MIN_BUCKETS_PER_LANE
+
+    def use(name):
+        _build.library = lambda: libs[name]
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    tables = {"fq": point_table("fq", 1 << 16, 1 << 21, dev), "fq2": point_table("fq2", 1 << 12, 1 << 12, dev)}
+
+    a = torch.randint(0, 1 << 16, (1 << 22, 16), generator=gen, dtype=torch.int32, device=dev)
+    b = torch.randint(0, 1 << 16, (1 << 22, 16), generator=gen, dtype=torch.int32, device=dev)
+    a[:, 15] = a[:, 15] % (FR.p >> 240)
+    b[:, 15] = b[:, 15] % (FR.p >> 240)
+    cases = [("K1 mont_mul fr 2^22", lambda: cuda_field.mont_mul(a, b, FR))]
+    for tag, wn, nb, entries, V in (("fq", 16, 32769, 1 << 25, msm._SCAN_LANES),
+                                    ("fq", 16, 32769, 1 << 25, 2 * msm._SCAN_LANES),
+                                    ("fq2", 22, 2049, 1 << 20, 1 << 15)):
+        table, tinf = tables[tag]
+        keys, pay = scan_stream(wn * nb, entries, V, table.shape[0] - 1, gen, dev)
+        tbl = torch.zeros((3 * cuda_msm.rows_for(tag), wn * nb), dtype=torch.int32, device=dev)
+
+        def scan(tag=tag, keys=keys, pay=pay, table=table, tinf=tinf, tbl=tbl):
+            tbl.zero_()
+            return (tbl, *cuda_msm.window_scan(tag, keys, pay, table, tinf, tbl))
+
+        cases.append((f"K4 window_scan {tag} L={keys.shape[0]} V={V} over {wn} x {nb} buckets", scan))
+    k6_tables = {}
+    for tag, wn, nb in (("fq", 16, 32769), ("fq", 22, 2049), ("fq2", 22, 2049)):
+        R = cuda_msm.rows_for(tag)
+        k6_tables[(tag, wn, nb)] = bucket_planes(tag, *tables[tag], wn * nb, gen).reshape(3 * R, wn, nb).contiguous()
+        cases.append((f"K6 weighted_bucket_total {tag} Wn={wn} NB={nb}",
+                      lambda tag=tag, t=k6_tables[(tag, wn, nb)]: cuda_msm.weighted_bucket_total(tag, t)))
+    for tag in ("fq", "fq2"):
+        R = cuda_msm.rows_for(tag)
+        wins = bucket_planes(tag, *tables[tag], 22, gen).reshape(3 * R, 22).contiguous()
+        cases.append((f"K7 horner_total {tag} Wn=22 c=12", lambda tag=tag, w=wins: cuda_msm.horner_total(tag, w, 12)))
+
+    ok = True
+    results: dict = {}
+    try:
+        for label, fn in cases:
+            use("shipped")
+            out = fn()
+            want = [t.clone() for t in (out if isinstance(out, tuple) else (out,))]
+            for name in VARIANTS:
+                use(name)
+                out = fn()
+                got = out if isinstance(out, tuple) else (out,)
+                equal = all(torch.equal(g, w) for g, w in zip(got, want))
+                ok &= equal
+                log(f"{label}: {name} equal to shipped: {equal}")
+            order = list(VARIANTS) + list(VARIANTS)[::-1]
+            for name in order:
+                use(name)
+                ms = cuda_ms(fn)
+                results.setdefault(label, {}).setdefault(name, []).append(round(ms, 4))
+                log(f"{label}: {name} {ms:.3f} ms")
+        use("shipped")
+        for (tag, wn, nb), t in k6_tables.items():
+            for lanes in (256, 512, 1024, 2048, 4096):
+                if wn * lanes > 1 << 17 or nb // lanes < 2:
+                    continue
+                cuda_msm._BUCKET_LANES, cuda_msm._MIN_BUCKETS_PER_LANE = wn * lanes, 1
+                assert cuda_msm.bucket_threads(tag, wn, nb) == lanes
+                ms = cuda_ms(lambda: cuda_msm.weighted_bucket_total(tag, t))
+                results.setdefault(f"K6 {tag} Wn={wn} NB={nb} by lanes per window", {})[lanes] = round(ms, 4)
+                log(f"K6 {tag} Wn={wn} NB={nb}: {lanes} lanes per window {ms:.3f} ms (shipped)")
+    finally:
+        _build.library = shipped_library
+        cuda_msm._BUCKET_LANES, cuda_msm._MIN_BUCKETS_PER_LANE = k6_budget
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    log(card)
+    print(json.dumps({"ok": ok, "card": card, "ms": results}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

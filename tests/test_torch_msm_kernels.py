@@ -5,8 +5,9 @@ On a CPU tensor each kernel wrapper runs its plain version, which is what
 these tests call. The port's layouts at the kernel boundary (lane-contiguous
 (3R, ...) planes, a point table gathered inside the scan) differ from the
 TPU's (8, V/8) tiles; the tests convert. K4, K5 and K7 add in the contract's
-order and agree bit for bit; K6 follows its CUDA kernel's schedule and
-agrees as affine points.
+order and agree bit for bit; K4's bucket table equals the contract's emit
+gathered at the interior run ends; K6 follows its CUDA kernel's schedule
+and agrees as affine points.
 
 G1 runs every contract here; the G2 cases call the same checks from
 test_torch_msm_kernels_g2.py (K4, K7), test_torch_msm_merge_g2.py (K5) and
@@ -58,18 +59,43 @@ def _planes(tag, table, tinf, idx):
     return cuda_msm.point_to_planes(p, tag)
 
 
-def check_window_scan(tag):
-    rng = np.random.default_rng(1)
+def _interior_totals(emit, fb, n_seg, L, V):
+    """The old orchestrator's rule (ops/msm.py before K4 wrote its bucket
+    table): a bucket whose run starts and ends inside one lane, at neither
+    its first nor its last slab, is interior, and its total is the lane's
+    pre-add accumulator at the slab after the run's end. emit: (3R, L * V)
+    slab-major; fb: the (V * L,) lane-major sorted bucket ids. Returns
+    (columns, totals (3R, columns))."""
+    ids = np.arange(n_seg)
+    starts = np.searchsorted(fb, ids, side="left")
+    ends = np.searchsorted(fb, ids, side="right") - 1
+    interior = (ends >= starts) & (starts // L == ends // L) & (starts % L != 0) & (ends % L != L - 1)
+    mine = np.nonzero(interior)[0]
+    e_loc = ends[mine]
+    return torch.from_numpy(mine), emit[:, torch.from_numpy((e_loc % L + 1) * V + e_loc // L)]
+
+
+def check_window_scan(tag, V=16, L=6, seed=1):
+    """K4's bucket table and boundaries against msm_sim.window_scan: its
+    emit gathered by the old interior rule, bit for bit. The ids hold
+    one-slab runs, a run longer than a lane (one lane inside it whole) and,
+    at the tail, sentinel ids >= n_seg."""
+    rng = np.random.default_rng(seed)
     R = cuda_msm.rows_for(tag)
-    V, L, n_pts = 16, 6, 40
+    n_pts = 40
     table, tinf = _table(tag, rng, n_pts)
-    fb = np.cumsum(rng.random(V * L) < 0.4).astype(np.int32)  # sorted bucket ids
+    step = rng.random(V * L) < 0.4
+    step[2 * L - 3 : 4 * L] = False  # one run over lane 2 whole, from lane 1 into lane 3
+    fb = np.cumsum(step).astype(np.int32)  # sorted bucket ids
     fb[V * L // 2 :] += 3
+    n_seg = int(fb[-L - 2])  # the last entries are sentinels
+    assert (fb >= n_seg).sum() > 1 and (fb[2 * L : 3 * L] == fb[2 * L]).all()
     idx = rng.integers(0, n_pts + 1, V * L).astype(np.int32)
     neg = (rng.random(V * L) < 0.5).astype(np.int32)
     keys = torch.from_numpy(fb.reshape(V, L).T.copy())
     pay = torch.from_numpy((idx | (neg << 30)).reshape(V, L).T.copy())
-    emit, hk, hpt, tk, tpt = cuda_msm.window_scan(tag, keys, pay, table, tinf)
+    tbl = torch.full((3 * R, n_seg), 7, dtype=torch.int32)
+    hk, hpt, tk, tpt = cuda_msm.window_scan(tag, keys, pay, table, tinf, tbl)
 
     ord_sm = torch.from_numpy(idx.reshape(V, L).T.copy()).long()
     g = table[ord_sm]  # (L, V, 2R)
@@ -82,8 +108,12 @@ def check_window_scan(tag):
         _u32(px), _u32(py), V=V,
     )
     ex, ey, ez, jhk, hx, hy, hz, jtk, tx, ty, tz = out
-    for i, e in enumerate((ex, ey, ez)):
-        assert _eq(e, emit[i * R : (i + 1) * R].reshape(R, *shape))
+    emit = torch.cat([torch.from_numpy(np.asarray(e).astype(np.int64).reshape(R, L * V)) for e in (ex, ey, ez)])
+    cols, totals = _interior_totals(emit, fb, n_seg, L, V)
+    assert cols.numel() > 3
+    want = torch.full((3 * R, n_seg), 7, dtype=torch.int64)
+    want[:, cols] = totals
+    assert torch.equal(tbl.long(), want)
     for i, e in enumerate((hx, hy, hz)):
         assert _eq(e, hpt[i * R : (i + 1) * R].reshape(R, 1, 8, V // 8))
     for i, e in enumerate((tx, ty, tz)):
@@ -109,16 +139,25 @@ def check_boundary_merge(tag):
             assert _eq(want[i][0], got[i * R : (i + 1) * R])
 
 
-def check_weighted_bucket_total(tag):
+def check_weighted_bucket_total(tag, lanes=None, sum_threads=None, monkeypatch=None):
+    """K6's schedule against msm_sim.weighted_bucket_total as affine points
+    and against the discrete-log oracle. 129 buckets per window, some of
+    them infinity; `lanes` per window (None: bucket_threads' own choice, 32
+    here) comes from the lanes over all windows, `sum_threads` caps the sum
+    block's threads so that the lanes are summed in more than one round, as
+    on the card."""
     rng = np.random.default_rng(3)
     R = cuda_msm.rows_for(tag)
     curve = cuda_msm.curve_for(tag)
-    # 129 buckets: four lanes per window (bucket_threads), so the lane
-    # split, the lo * (running sum) double-and-add and the halving tree all
-    # run; the last lane holds 30 buckets, the others 33 each
     wn, nb = 2, 129
-    assert cuda_msm.bucket_threads(tag, nb) == 4
+    if lanes is not None:
+        monkeypatch.setattr(cuda_msm, "_BUCKET_LANES", wn * lanes)
+    assert cuda_msm.bucket_threads(tag, wn, nb) == (lanes or 32)
+    if sum_threads is not None:
+        monkeypatch.setitem(cuda_msm._SUM_THREADS_MAX, tag, sum_threads)
     pts, dlogs = points_with_dlogs(tag, wn * nb, rng)
+    for i in (0, 5, nb + 64, 2 * nb - 1):  # bucket 0, inner buckets and the top one
+        pts[i], dlogs[i] = None, 0
     x, y, inf = curve.encode_affine(pts)
     p = curve.from_affine(x, y, inf)
     tbl = cuda_msm.point_to_planes(p, tag).reshape(3 * R, wn, nb)
@@ -149,6 +188,11 @@ def test_window_scan_matches_contract():
     check_window_scan("fq")
 
 
+def test_window_scan_matches_contract_long_lanes():
+    """Eight lanes of 13 slabs: the whole-lane run covers lane 2 and more."""
+    check_window_scan("fq", V=8, L=13)
+
+
 @pytest.mark.parametrize("tag", ["fq"])
 def test_boundary_merge_matches_contract(tag):
     check_boundary_merge(tag)
@@ -157,6 +201,24 @@ def test_boundary_merge_matches_contract(tag):
 @pytest.mark.parametrize("tag", ["fq"])
 def test_weighted_bucket_total_matches_contract(tag):
     check_weighted_bucket_total(tag)
+
+
+@pytest.mark.parametrize("lanes,sum_threads", [(1, None), (2, None), (32, 4)])
+def test_weighted_bucket_total_lane_schedules(lanes, sum_threads, monkeypatch):
+    """One lane per window, two lanes (NB not a multiple of either), and 32
+    lanes summed in two rounds of blocks of four."""
+    check_weighted_bucket_total("fq", lanes, sum_threads, monkeypatch)
+
+
+def test_bucket_threads_fill_the_card():
+    """The main path's shapes: at the H MSM's 16 windows of 32769 buckets,
+    K6's walk runs 2048 lanes per window (256 blocks of 128 threads on the
+    card's 132 SMs); at the witness MSMs' 22 windows of 2049, 512 lanes of
+    four buckets or more; a window of three buckets, one lane."""
+    assert cuda_msm.bucket_threads("fq", 16, 32769) == 2048
+    assert cuda_msm.bucket_threads("fq", 22, 2049) == 512
+    assert cuda_msm.bucket_threads("fq2", 22, 2049) == 512
+    assert cuda_msm.bucket_threads("fq", 2, 3) == 1
 
 
 def test_horner_total_matches_contract():
