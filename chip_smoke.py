@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compile the CUDA kernels from keyless_zk_tpu_torch/csrc, and
-   print ptxas's registers, spill bytes and stack frame of the K4 and K6
+   print ptxas's registers, spill bytes and stack frame of the K4-K7
    kernels from build.log;
 3. the Montgomery product kernel (K1) against its plain PyTorch version on
    the card, Fr and Fq at 2^22 elements with the main path's broadcasts,
@@ -28,12 +28,18 @@ Phases, in order; any failure exits non-zero:
    generation, prover construction, one warm-up and three timed proofs
    with per-phase CUDA-event times, each proof checked against the
    discrete-log oracle, and the launch counts of one proof (every kernel of
-   the path > 0; K6 counts its bucket walk and each sum launch). The
-   warm-up proof keeps the inputs of every call of the MSM kernels (K4-K7)
-   and of the reduction (K8, both bodies) with a distinct signature, and
-   each is then run through the kernel and its plain version: equal, with
-   both times (K4's bucket table, written in place, is compared with its
-   heads and tails; K6's line shows its grids). Then the h scalars of the
+   the path > 0; K5 counts each level's launch, at most three per MSM; K6
+   its bucket walk and each sum launch). The warm-up proof keeps the inputs
+   of every call of the MSM kernels (K4-K7) and of the reduction (K8, both
+   bodies) with a distinct signature, and each is then run through the
+   kernel and its plain version: equal, with both times (K4's and K5's
+   bucket tables, written in place, are compared, K4's with its heads and
+   tails; K6's line shows its grids, K7's its microseconds per chained
+   group op). K5 and K7 also run planted edge cases against their plain
+   versions: boundary sequences with leading sentinels, runs across tiles,
+   one run over most of the sequence or all of it, ids >= n_seg; window
+   totals at infinity, equal (the add's doubling branch) and opposite
+   (P + (-P)). Then the h scalars of the
    kernel path against the plain versions, and against the butterfly NTT
    plan on the card, with both plans' iNTT and NTT times and the int8
    product's;
@@ -400,8 +406,12 @@ def _describe(sig: tuple) -> str:
         (L, V), _, (rows, _), _, (_, n_seg) = rest
         return f"{tag} L={L} V={V} table {rows} rows, {n_seg} buckets"
     if name == "boundary_merge":
-        (m,), _, steps = rest
-        return f"{tag} m={m} {steps} passes"
+        from keyless_zk_tpu_torch.ops import cuda_msm
+
+        (m,), _, (_, n_seg) = rest
+        tile = cuda_msm._MERGE_TILE[tag]
+        return (f"{tag} m={m}, {n_seg} buckets: tiles of {tile}, "
+                f"{len(cuda_msm.merge_levels(m, tile))} launches {cuda_msm.merge_levels(m, tile)}")
     if name == "weighted_bucket_total":
         from keyless_zk_tpu_torch.ops import cuda_msm
 
@@ -415,7 +425,12 @@ def _describe(sig: tuple) -> str:
         return (f"{tag} Wn={wn} NB={nb}: walk {lanes} lanes per window, {-(-wn * lanes // 128)} blocks of 128; "
                 f"sums {', '.join(grids) or 'none'} (blocks x threads)")
     (_, wn), c = rest
-    return f"{tag} Wn={wn} c={c}"
+    return f"{tag} Wn={wn} c={c}, {horner_ops(wn, c)} chained group ops"
+
+
+def horner_ops(wn: int, c: int) -> int:
+    """Group ops on K7's chain: c doublings and one add per window below the top."""
+    return (wn - 1) * (c + 1)
 
 
 def msm_imad(name: str, args) -> float:
@@ -426,13 +441,10 @@ def msm_imad(name: str, args) -> float:
     if name == "window_scan":  # one mixed add per stream entry of a finite point
         _, _, pay, _, tinf, _ = args
         return group_imad("madd", tag, int((~tinf[(pay & ((1 << 30) - 1)).long()]).sum()))
-    if name == "boundary_merge":  # one add per lane whose partner shares its key, per pass
-        _, keys, _, max_steps = args
-        m = keys.shape[0]
-        idx = torch.arange(m, device=keys.device)
-        adds = sum(int(((torch.roll(keys, -(1 << s)) == keys) & (idx < m - (1 << s))).sum())
-                   for s in range(min(max_steps, max(m - 1, 1).bit_length())))
-        return group_imad("add", tag, adds)
+    if name == "boundary_merge":  # one add per entry whose bucket key equals its predecessor's
+        _, keys, _, tbl = args
+        k = keys[1:]
+        return group_imad("add", tag, int(((k == keys[:-1]) & (k >= 0) & (k < tbl.shape[1])).sum()))
     if name == "weighted_bucket_total":  # the running sum and its integral over every bucket
         _, tbl = args
         return group_imad("add", tag, 2 * tbl.shape[1] * tbl.shape[2])
@@ -462,9 +474,120 @@ def scan_check(records, args, note) -> None:
            f"{note}, {written} interior buckets written", moved=moved, imad=msm_imad("window_scan", args))
 
 
-def msm_kernel_checks(store: dict, records: dict) -> None:
+def merge_check(records, args, note) -> None:
+    """K5 against its plain version. Like K4 it writes its bucket table in
+    place: each side starts from its own copy of the captured table (K4's
+    interior buckets written), and the tables are compared."""
+    import torch
+
+    from keyless_zk_tpu_torch.ops import cuda_msm
+
+    tag, keys, pts, tbl = args
+    tbl0 = tbl.clone()
+    got_tbl = tbl0.clone()
+    cuda_msm.boundary_merge(tag, keys, pts, got_tbl)
+    want_tbl = tbl0.clone()
+    with plain_kernels():
+        _, plain_ms = cuda_ms(lambda: cuda_msm.boundary_merge_plain(tag, keys, pts, want_tbl), warm=False)
+    _, ms = cuda_ms(lambda: cuda_msm.boundary_merge(*args), reps=3)
+    written = int(torch.unique(keys[(keys >= 0) & (keys < tbl.shape[1])]).numel())
+    moved = nbytes(keys, pts) + written * tbl0.shape[0] * tbl0.element_size()
+    record(records, "boundary_merge", max_abs_err(got_tbl, want_tbl), ms, plain_ms,
+           f"{note}, {written} buckets written", moved=moved, imad=msm_imad("boundary_merge", args))
+
+
+def planted(records, name, err, note) -> None:
+    """An untimed kernel-vs-plain comparison on planted inputs."""
+    rec = records.setdefault(name, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                                    "bound_ms": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    log(f"kernel {name} [planted: {note}]: equal={err == 0}")
+    check(err == 0, f"{name} differs from its plain version (planted: {note})")
+
+
+def k5_planted(dev, records, m: int = 1 << 16) -> None:
+    """K5 on planted boundary sequences of m entries, G1 and G2: leading
+    sentinels, runs of random length that cross tiles, one run over 5/8 of
+    the sequence (160 tiles at m = 2^16), and at the tail ids >= n_seg or a
+    bucket (which the last level writes); and one key over the whole
+    sequence. Each side writes its own copy of the table."""
+    import torch
+
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE
+    from keyless_zk_tpu_torch.ops import cuda_msm, testgen
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    n_seg = 45_078
+    for tag in ("fq", "fq2"):
+        curve = G1_CURVE if tag == "fq" else G2_CURVE
+        x, y, inf = testgen.random_points(m, seed=43, curve=curve, device=dev)
+        inf = inf.bool() | (torch.rand(m, generator=gen, device=dev) < 0.01)
+        pts = cuda_msm.point_to_planes(curve.from_affine(x, y, inf), tag)
+        runs = torch.randint(1, 9, (m,), generator=gen, device=dev)
+        runs[100] = m * 5 // 8
+        starts = torch.cumsum(runs, 0) - runs
+        runs_keys = (torch.searchsorted(starts, torch.arange(m, device=dev), right=True) - 1).int()
+        runs_keys[:37] = -1
+        runs_keys = torch.cummax(runs_keys, 0).values.int().contiguous()
+        mixed = runs_keys.clone()
+        mixed[-(m // 200):] += n_seg  # ids >= n_seg
+        for label, keys in (("mixed runs", mixed), ("mixed runs, a bucket last", runs_keys),
+                            ("one key", torch.full((m,), 7, dtype=torch.int32, device=dev))):
+            tbl0 = torch.randint(0, 1 << 16, (3 * cuda_msm.rows_for(tag), n_seg), generator=gen,
+                                 dtype=torch.int32, device=dev)
+            got, want = tbl0.clone(), tbl0.clone()
+            cuda_msm.boundary_merge(tag, keys, pts, got)
+            with plain_kernels():
+                cuda_msm.boundary_merge_plain(tag, keys, pts, want)
+            planted(records, "boundary_merge", max_abs_err(got, want), f"{tag} m={m} {label}")
+
+
+def k7_planted(dev, records) -> None:
+    """K7 at c = 12, G1 and G2, on planted window totals: the top and a
+    middle window at infinity; W0 = 2^c W1 (add_core's doubling branch);
+    W0 = -2^c W1 (P + (-P), infinity); all at infinity."""
+    import torch
+
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
+    from keyless_zk_tpu_torch.ops import cuda_msm, testgen
+
+    c = 12
+    for tag in ("fq", "fq2"):
+        curve = G1_CURVE if tag == "fq" else G2_CURVE
+        f = curve.ops
+        x, y, inf = testgen.random_points(4, seed=47, curve=curve, device=dev)
+        p = curve.dbl(curve.from_affine(x, y, inf.bool()))  # z != 1
+        with plain_kernels():
+            top = JacPoint(*(co[:1] for co in p))
+            big = top
+            for _ in range(c):
+                big = curve.dbl(big)
+        inf_pt = curve.infinity((1,), dev)
+
+        def cat(*ps):
+            return cuda_msm.point_to_planes(JacPoint(*(torch.cat(co) for co in zip(*ps))), tag)
+
+        cases = {
+            "top and a middle window at infinity": cat(JacPoint(*(co[1:2] for co in p)), inf_pt,
+                                                       JacPoint(*(co[2:3] for co in p)), inf_pt),
+            "W0 = 2^c W1": cat(big, top),
+            "W0 = -2^c W1": cat(JacPoint(big.x, f.neg(big.y), big.z), top),
+            "all at infinity": cat(inf_pt, inf_pt, inf_pt),
+        }
+        for label, wins in cases.items():
+            got = cuda_msm.horner_total(tag, wins, c)
+            with plain_kernels():
+                want = cuda_msm.horner_total_plain(tag, wins, c)
+            planted(records, "horner_total", max_abs_err(got, want), f"{tag} Wn={wins.shape[1]} c={c}, {label}")
+            if label == "W0 = -2^c W1":
+                check(bool((got[-cuda_msm.rows_for(tag):] == 0).all()), "K7: P + (-P) is not at infinity")
+
+
+def msm_kernel_checks(store: dict, records: dict, dev) -> None:
     """Each captured main-path call of K4-K7 through the kernel and through
-    its plain version on the same card tensors: the outputs must be equal."""
+    its plain version on the same card tensors: the outputs must be equal.
+    Then K5 and K7 on planted edge cases."""
     from keyless_zk_tpu_torch.ops import cuda_msm
 
     for name in MSM_KERNELS:
@@ -475,8 +598,17 @@ def msm_kernel_checks(store: dict, records: dict) -> None:
         if name == "window_scan":
             scan_check(records, args, _describe(sig))
             continue
-        compare(records, name, getattr(cuda_msm, name), getattr(cuda_msm, name + "_plain"), args, _describe(sig),
+        if name == "boundary_merge":
+            merge_check(records, args, _describe(sig))
+            continue
+        note = _describe(sig)
+        if name == "horner_total":
+            _, ms = cuda_ms(lambda: cuda_msm.horner_total(*args), reps=3)
+            note += f", {1e3 * ms / horner_ops(args[1].shape[1], args[2]):.3f} us per chained op"
+        compare(records, name, getattr(cuda_msm, name), getattr(cuda_msm, name + "_plain"), args, note,
                 imad=msm_imad(name, args))
+    k5_planted(dev, records)
+    k7_planted(dev, records)
 
 
 def redc_kernel_checks(store: dict, records: dict) -> None:
@@ -596,7 +728,7 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     with capture_calls(cuda_msm, MSM_KERNELS, msm_calls), capture_calls(cuda_redc, REDC_KERNELS, redc_calls):
         prove_checked(prover, key, R_FIXED, S_FIXED, "full proof warm-up (K4-K8 inputs captured)")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
-    msm_kernel_checks(msm_calls, records)
+    msm_kernel_checks(msm_calls, records, dev)
     del msm_calls
     redc_kernel_checks(redc_calls, records)
     del redc_calls
@@ -618,6 +750,7 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     for name, _, _, path in KERNELS:
         if path == "prove":
             check(counts_out.get(name, 0) > 0, f"kernel {name} was not launched by the prove path")
+    check(counts_out["boundary_merge"] <= 3 * 5, "K5 took more than three launches per MSM")
 
     w = torch.from_numpy(key.witness.astype("int32")).to(dev)
     got = prover._h_scalars(w)
@@ -711,7 +844,7 @@ def setup_path(dev, counts_out: dict, records: dict, domain_pow: int = 21) -> No
     check(not bad, "a tampered proof verifies")
 
 
-PTXAS_KERNELS = ("window_scan_kernel", "bucket_walk_kernel", "point_sum_kernel")
+PTXAS_KERNELS = ("window_scan_kernel", "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
 
 
 def main() -> int:
@@ -744,9 +877,9 @@ def main() -> int:
         _build.library()
         log(f"build: {secs:.1f} s -> {lib}")
         report = _build.ptxas_report((lib.parent / "build.log").read_text(), PTXAS_KERNELS)
-        log("ptxas (K4, K6): " + json.dumps(report))
+        log("ptxas (K4-K7): " + json.dumps(report))
         check(all(any(k.startswith(name) for k in report) for name in PTXAS_KERNELS),
-              "build.log lacks the ptxas report of a K4 or K6 kernel")
+              "build.log lacks the ptxas report of a K4-K7 kernel")
         mont_mul_checks(dev, records)
         counts[None] = {"curve_add": k3_checks(dev, records)}
         small_proof(dev)

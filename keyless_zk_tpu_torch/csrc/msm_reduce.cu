@@ -27,9 +27,22 @@
 // coordinates.
 //
 // K7 replaces `horner_total` (`_build_horner`): sum_w 2^(c*w) * W_w over at
-// most a few dozen windows. It is one thread doing c doublings and one add
-// per window from the top (the order of msm._horner_windows, so it matches
-// msm_sim.horner_total bit for bit).
+// most a few dozen windows, by Horner's chain from the top window: c
+// doublings and one complete add per window (the order of
+// msm._horner_windows). The chain is serial, so one thread ran it before,
+// each group op's 7 (doubling) or 16 (add) products one after another
+// (~5.5 us per G1 op, ~14.9 us per G2 op on the H100, PERF.md). The products
+// of one op are not a chain: a doubling's fall into 3 levels (3, 3, 1), an
+// add's into 5, and at G2 each Fq2 product is 3 independent Fq products. So
+// here one warp runs the chain, and each op is a program of steps of
+// independent Fq operations (ops/warp_program.py, passed in as data), one
+// operation per lane: lane l loads its operands from a shared slot file,
+// multiplies, adds or subtracts, and stores its result in a fresh slot;
+// __syncwarp() separates the steps. add_core's edge cases keep
+// their order (P == Q doubles, p at infinity gives q, q at infinity gives
+// p), on flags that every lane reads alike. Every field result is
+// canonical, so the output equals the sequential chain
+// (msm_sim.horner_total) bit for bit.
 //
 // Bound on the H100: K6 is integer multiply-adds, two complete adds per
 // bucket, and a latency chain per thread: a group add is 16 Montgomery
@@ -43,7 +56,8 @@
 // 2 * ceil(NB / T) adds plus log2 T doublings and their adds, on ~2^15
 // threads, and log2 J adds per sum launch; the field products are calls
 // (field.cuh `gmul`), which keeps the walk's loop small (inlined, it took
-// 2.3-2.8x as long). K7 is a single thread, a latency chain.
+// 2.3-2.8x as long). K7 is a latency chain: its bound is one op's product
+// depth per op, not the card's multiply rate.
 
 #include <cuda_runtime.h>
 
@@ -96,15 +110,98 @@ point_sum_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long
   if (j == 0) store_jac(out, Wn * Q, w * Q + q, part[0]);
 }
 
-template <class F>
-__global__ void horner_kernel(const int32_t* __restrict__ wins, int32_t* __restrict__ out, long long Wn, int c) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  Jac<F> acc = load_jac<F>(wins, Wn, Wn - 1);
-  for (long long w = Wn - 2; w >= 0; w--) {
-    for (int i = 0; i < c; i++) acc = dbl_core(acc);
-    acc = add_core(acc, load_jac<F>(wins, Wn, w));
+namespace {
+
+using Fq = Fp<FqMod>;
+constexpr int kLanes = 32;
+constexpr int kSlots = 256;     // shared slot file (ops/warp_program.py SLOTS)
+constexpr int kCodeMax = 4096;  // program words (CODE_MAX)
+// program header (ops/warp_program.py H_*)
+constexpr int kDblSteps = 0, kAddSteps = 1, kDblOut = 2, kAddOut = 8, kH = 14, kRr = 16, kHeader = 18;
+
+// x, or q - x (q for x == 0, which the add that takes it reduces): a sub is
+// an add of this, so the lanes of an add or sub step run one path
+__device__ __forceinline__ Fq negate_if(const Fq& x, bool neg) {
+  uint32_t p[8], d[8];
+  modulus_words<FqMod>(p);
+  sub8(d, p, x.v);
+  Fq r;
+#pragma unroll
+  for (int i = 0; i < 8; i++) r.v[i] = neg ? d[i] : x.v[i];
+  return r;
+}
+
+// One program's steps: lane l runs word l of each step (kind << 30 | dst
+// << 20 | a << 10 | b; kind 0 idle, 1 product, 2 add, 3 sub).
+__device__ __forceinline__ void run_steps(Fq* slot, const uint32_t* code, int n_steps, int lane) {
+  for (int s = 0; s < n_steps; s++) {
+    const uint32_t op = code[s * kLanes + lane];
+    const uint32_t kind = op >> 30;
+    if (kind) {
+      const Fq x = slot[(op >> 10) & 1023u], y = slot[op & 1023u];
+      slot[(op >> 20) & 1023u] = kind == 1 ? mul(x, y) : add(x, negate_if(y, kind == 3));
+    }
+    __syncwarp();
   }
-  store_jac(out, 1, 0, acc);
+}
+
+// slot[i] = slot[src[i]] for the point's 3E elements (src outside [0, 3E))
+template <int E>
+__device__ __forceinline__ void take_point(Fq* slot, const uint32_t* src, int lane) {
+  if (lane < 3 * E) {
+    const Fq v = slot[src[lane]];
+    slot[lane] = v;
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ bool slots_zero(const Fq* slot, const uint32_t* idx, int n) {
+  bool z = true;
+  for (int i = 0; i < n; i++) z = z && is_zero(slot[idx[i]]);
+  return z;
+}
+
+}  // namespace
+
+// F: the coordinate field, E = 1 (G1) or 2 (G2) Fq elements per coordinate.
+// Element i of a point is limb rows [16 i, 16 i + 16) of its planes and
+// slot i (p) or 3E + i (q).
+template <class F>
+__global__ void __launch_bounds__(kLanes) horner_kernel(const int32_t* __restrict__ wins, int32_t* __restrict__ out,
+                                                        long long Wn, int c, const int32_t* __restrict__ prog,
+                                                        int prog_len) {
+  constexpr int E = Field<F>::rows / 16;
+  __shared__ Fq slot[kSlots];
+  __shared__ uint32_t code[kCodeMax];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < prog_len; i += kLanes) code[i] = (uint32_t)prog[i];
+  if (lane < 3 * E) slot[lane] = Field<Fq>::load(wins + 16LL * lane * Wn + (Wn - 1), Wn);
+  __syncwarp();
+  const int n_dbl = (int)code[kDblSteps], n_add = (int)code[kAddSteps];
+  const uint32_t* dbl = code + kHeader;
+  const uint32_t* add_prog = dbl + n_dbl * kLanes;
+  const uint32_t q_z[2] = {5 * E, 5 * E + 1}, p_z[2] = {2 * E, 2 * E + 1};
+  for (long long w = Wn - 2; w >= 0; w--) {
+    for (int i = 0; i < c; i++) {
+      run_steps(slot, dbl, n_dbl, lane);
+      take_point<E>(slot, code + kDblOut, lane);
+    }
+    if (lane < 3 * E) slot[3 * E + lane] = Field<Fq>::load(wins + 16LL * lane * Wn + w, Wn);
+    __syncwarp();
+    run_steps(slot, add_prog, n_add, lane);
+    // add_core's selects, in its order: q at infinity keeps p
+    if (slots_zero(slot, q_z, E)) continue;
+    if (slots_zero(slot, p_z, E)) {
+      if (lane < 3 * E) slot[lane] = slot[3 * E + lane];
+      __syncwarp();
+    } else if (slots_zero(slot, code + kH, E) && slots_zero(slot, code + kRr, E)) {
+      run_steps(slot, dbl, n_dbl, lane);  // P == Q
+      take_point<E>(slot, code + kDblOut, lane);
+    } else {
+      take_point<E>(slot, code + kAddOut, lane);
+    }
+  }
+  if (lane < 3 * E) Field<Fq>::store(out + 16 * lane, 1, slot[lane]);
 }
 
 // tbl: (3R, Wn, NB) int32 bucket planes; g: (3R, Wn, T) int32, the lanes'
@@ -135,13 +232,16 @@ extern "C" int kzk_point_sum(const void* in, void* out, long long Wn, long long 
   return (int)cudaGetLastError();
 }
 
-// wins: (3R, Wn) int32 window totals; out: (3R,) = sum_w 2^(c*w) W_w.
-extern "C" int kzk_horner_total(const void* wins, void* out, long long Wn, int c, int g2, void* stream) {
+// wins: (3R, Wn) int32 window totals; out: (3R,) = sum_w 2^(c*w) W_w; prog:
+// the group's program (ops/warp_program.py `encode`), prog_len words.
+extern "C" int kzk_horner_total(const void* wins, void* out, long long Wn, int c, const void* prog, int prog_len,
+                                int g2, void* stream) {
   if (Wn == 0) return 0;
+  if (prog_len > kCodeMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (g2)
-    horner_kernel<Fq2><<<1, 32, 0, s>>>((const int32_t*)wins, (int32_t*)out, Wn, c);
+    horner_kernel<Fq2><<<1, kLanes, 0, s>>>((const int32_t*)wins, (int32_t*)out, Wn, c, (const int32_t*)prog, prog_len);
   else
-    horner_kernel<Fp<FqMod>><<<1, 32, 0, s>>>((const int32_t*)wins, (int32_t*)out, Wn, c);
+    horner_kernel<Fq><<<1, kLanes, 0, s>>>((const int32_t*)wins, (int32_t*)out, Wn, c, (const int32_t*)prog, prog_len);
   return (int)cudaGetLastError();
 }

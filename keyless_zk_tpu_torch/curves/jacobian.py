@@ -72,6 +72,21 @@ class JacobianCurve:
 
     def add(self, p: JacPoint, q: JacPoint) -> JacPoint:
         f = self.ops
+        out, h, rr = self.add_formula(p, q)
+        p_inf = self.is_infinity(p)
+        q_inf = self.is_infinity(q)
+        both = ~p_inf & ~q_inf
+        take_dbl = f.is_zero(h) & both & f.is_zero(rr)
+        if bool(take_dbl.any()):  # P == Q -> double; P == -Q -> z3 = 0 already
+            out = self.select(take_dbl, self.dbl(p), out)
+        out = self.select(p_inf, q, out)
+        out = self.select(q_inf, p, out)
+        return out
+
+    def add_formula(self, p: JacPoint, q: JacPoint):
+        """add-2007-bl without its edge cases: (p + q, h, rr), with h and rr
+        left for the caller's P == +-Q test."""
+        f = self.ops
         z1z1 = f.sqr(p.z)
         z2z2 = f.sqr(q.z)
         u1 = f.mul(p.x, z2z2)
@@ -89,17 +104,7 @@ class JacobianCurve:
         y3 = f.sub(f.mul(r2, f.sub(v, x3)), f.add(s1j, s1j))
         zz = f.sub(f.sub(f.sqr(f.add(p.z, q.z)), z1z1), z2z2)
         z3 = f.mul(zz, h)
-        out = JacPoint(x3, y3, z3)
-
-        p_inf = self.is_infinity(p)
-        q_inf = self.is_infinity(q)
-        both = ~p_inf & ~q_inf
-        take_dbl = f.is_zero(h) & both & f.is_zero(rr)
-        if bool(take_dbl.any()):  # P == Q -> double; P == -Q -> z3 = 0 already
-            out = self.select(take_dbl, self.dbl(p), out)
-        out = self.select(p_inf, q, out)
-        out = self.select(q_inf, p, out)
-        return out
+        return JacPoint(x3, y3, z3), h, rr
 
     def add_mixed(self, p: JacPoint, qx, qy, q_inf) -> JacPoint:
         """p (Jacobian) + q (affine with explicit infinity mask)."""

@@ -13,16 +13,19 @@ the rows, so that neighbouring lanes are neighbouring addresses. Keys and
 payloads are int32.
 
 K4 `window_scan` (csrc/msm_scan.cu), K5 `boundary_merge` (csrc/msm_merge.cu),
-K6 `weighted_bucket_total` and K7 `horner_total` (csrc/msm_reduce.cu).
+K6 `weighted_bucket_total` and K7 `horner_total` (csrc/msm_reduce.cu). K4
+and K5 write the bucket table they are given in place.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
 from ..fields.limbs import NUM_LIMBS
-from . import _build
+from . import _build, warp_program
 
 
 def rows_for(tag: str) -> int:
@@ -218,45 +221,127 @@ def window_scan(tag, keys, pay, table, tinf, tbl):
 
 # ---- K5: boundary merge -------------------------------------------------------
 
-def boundary_merge_plain(tag, keys, pts, max_steps):
-    """Port of msm_sim.boundary_merge: exactly min(max_steps, log2 m)
-    segmented Hillis-Steele passes."""
+# entries per tile (threads per block) of K5's segmented tree; each holds
+# one point in shared memory (tools/kernel_variants.py times 128 / 256 / 512
+# at G1, PERF.md)
+_MERGE_TILE = {"fq": 256, "fq2": 128}
+_PAD_KEY = (1 << 31) - 1  # past the sequence: sorts last, never a bucket
+
+
+def merge_levels(m: int, tile: int) -> list[int]:
+    """The sequence length at each of K5's launches: m, then two partials
+    per tile of the level before, down to one tile."""
+    assert tile >= 4 and tile & (tile - 1) == 0
+    levels = [m]
+    while m > tile:
+        m = 2 * -(-m // tile)
+        levels.append(m)
+    return levels
+
+
+def _take(curve, p: JacPoint, idx) -> JacPoint:
+    dim = -(curve.ops.coord_ndim + 1)
+    return JacPoint(*(c.index_select(dim, idx) for c in p))
+
+
+def _put(curve, p: JacPoint, idx, v: JacPoint) -> JacPoint:
+    dim = -(curve.ops.coord_ndim + 1)
+    return JacPoint(*(c.index_copy(dim, idx, x) for c, x in zip(p, v)))
+
+
+def _merge_level_plain(curve, tag, keys, planes, tbl, tile: int):
+    """One launch of K5 in torch, every tile at once: the segmented halving
+    tree, the complete segments' totals written into `tbl`, and (key,
+    partial) pairs of each tile's first and last segments returned, or None
+    at the last level, which writes those too."""
+    n_seg = tbl.shape[1]
+    n = keys.shape[0]
+    T = -(-n // tile)
+    k = torch.nn.functional.pad(keys, (0, T * tile - n), value=_PAD_KEY).reshape(T, tile).long()
+    P = planes_to_point(torch.nn.functional.pad(planes, (0, T * tile - n)).reshape(planes.shape[0], T, tile), tag)
+    dev = keys.device
+    writes = []
+
+    def writable(kk):
+        return (kk >= 0) & (kk < n_seg)
+
+    s = 1
+    while s < tile:
+        lo = torch.arange(0, tile, 2 * s, device=dev)
+        mid, hi = lo + s, lo + 2 * s - 1
+        kl, kr = k[:, mid - 1], k[:, mid]
+        l_one, r_one = k[:, lo] == kl, kr == k[:, hi]
+        p_lo, p_lm, p_mid, p_hi = (_take(curve, P, x) for x in (lo, mid - 1, mid, hi))
+        l_last = curve.select(l_one, p_lo, p_lm)
+        same = kl == kr
+        m = curve.select(same & writable(kl), curve.add(l_last, p_mid), l_last)
+        writes += [(same & ~l_one & ~r_one & writable(kl), kl, m),
+                   (~same & ~l_one & writable(kl), kl, p_lm),
+                   (~same & ~r_one & writable(kr), kr, p_mid)]
+        new_lo = curve.select(same & l_one, m, p_lo)
+        new_hi = curve.select(same & ~l_one & r_one, m, curve.select(~same & r_one, p_mid, p_hi))
+        P = _put(curve, _put(curve, P, lo, new_lo), hi, new_hi)
+        s *= 2
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    kf, kl = k[:, 0], k[:, tile - 1]
+    first = _take(curve, P, zero)
+    last = _take(curve, P, zero + tile - 1)
+    if T == 1:
+        writes += [(writable(kf)[:, None], kf[:, None], first),
+                   (((kl != kf) & writable(kl))[:, None], kl[:, None], last)]
+    for mask, kk, pt in writes:
+        tbl[:, kk[mask]] = point_to_planes(JacPoint(*(c[mask] for c in pt)), tag)
+    if T == 1:
+        return None
+    last = curve.select((kl == kf)[:, None], curve.infinity((T, 1), dev), last)
+    keys_out = torch.stack([kf, kl], dim=1).reshape(2 * T).int()
+    pts_out = torch.stack([point_to_planes(first, tag), point_to_planes(last, tag)], dim=-1)
+    return keys_out, pts_out.reshape(planes.shape[0], 2 * T)
+
+
+def boundary_merge_plain(tag, keys, pts, tbl):
+    """K5's schedule in torch, bit-equal to the kernel (see
+    `boundary_merge`); the contract, msm_sim.boundary_merge, adds in
+    another order and agrees as affine points."""
     curve = curve_for(tag)
-    m = keys.shape[0]
-    acc = planes_to_point(pts, tag)
-    idx = torch.arange(m, device=keys.device)
-    for s in range(min(max_steps, max(m - 1, 1).bit_length())):
-        sh = 1 << s
-        valid = (torch.roll(keys, -sh) == keys) & (idx < m - sh)
-        acc = curve.select(valid, curve.add(acc, _roll_batch(curve, acc, sh)), acc)
-    return point_to_planes(acc, tag)
+    tile = _MERGE_TILE[tag]
+    level = (keys, pts)
+    for _ in merge_levels(keys.shape[0], tile) if keys.shape[0] else ():
+        level = _merge_level_plain(curve, tag, *level, tbl, tile)
 
 
 @_build.counted
-def boundary_merge(tag, keys, pts, max_steps: int):
-    """keys (m,) int32 (sorted, cummax-filled), points (3R, m) int32 ->
-    (3R, m): after min(max_steps, log2 m) passes the first (leader) entry of
-    every equal-key segment shorter than 2^max_steps holds its total."""
+def boundary_merge(tag, keys, pts, tbl):
+    """Write each equal-key segment's total of the boundary sequence into the
+    bucket table, in place.
+
+    keys: (m,) int32, sorted (cummax-filled: negative sentinels lead);
+    pts: (3R, m) int32 points; tbl: (3R, n_seg) int32. For every key k in
+    [0, n_seg) the sum of its entries goes to column k; other keys are
+    skipped and other columns left as they were. Tiles of `_MERGE_TILE`
+    entries, one launch per level of `merge_levels` (three at the main
+    path's sizes, each counted), no host sync."""
     if keys.device.type == "cpu":
-        return boundary_merge_plain(tag, keys, pts, max_steps)
-    _require_cuda("boundary_merge", keys, pts)
-    _require_dtype("boundary_merge", torch.int32, keys, pts)
+        return boundary_merge_plain(tag, keys, pts, tbl)
+    _require_cuda("boundary_merge", keys, pts, tbl)
+    _require_dtype("boundary_merge", torch.int32, keys, pts, tbl)
     m = keys.shape[0]
-    if keys.dim() != 1 or pts.shape != (3 * rows_for(tag), m):
+    R3 = 3 * rows_for(tag)
+    if keys.dim() != 1 or pts.shape != (R3, m) or tbl.dim() != 2 or tbl.shape[0] != R3:
         raise ValueError("boundary_merge: shape mismatch")
-    steps = min(int(max_steps), max(m - 1, 1).bit_length())
+    tile = _MERGE_TILE[tag]
     lib = _build.library()
-    cur = pts
-    bufs = [torch.empty_like(pts), torch.empty_like(pts)]
-    for s in range(steps):
-        out = bufs[s % 2]
+    dev = keys.device
+    for n in merge_levels(m, tile) if m else ():
+        n_out = 2 * -(-n // tile)
+        keys_out = torch.empty(n_out, dtype=torch.int32, device=dev)
+        pts_out = torch.empty((R3, n_out), dtype=torch.int32, device=dev)
         boundary_merge.launches += 1
-        err = lib.kzk_boundary_merge_pass(
-            keys.data_ptr(), cur.data_ptr(), out.data_ptr(), m, 1 << s, int(tag == "fq2"), _stream(keys)
-        )
+        err = lib.kzk_boundary_merge_level(keys.data_ptr(), pts.data_ptr(), n, keys_out.data_ptr(),
+                                           pts_out.data_ptr(), tbl.data_ptr(), tbl.shape[1], tile,
+                                           int(tag == "fq2"), _stream(keys))
         _build.check(err, "boundary_merge")
-        cur = out
-    return cur
+        keys, pts = keys_out, pts_out
 
 
 # ---- K6: weighted bucket total ------------------------------------------------
@@ -376,10 +461,18 @@ def weighted_bucket_total(tag, tbl):
 # ---- K7: horner over windows --------------------------------------------------
 
 def horner_total_plain(tag, wins, c: int):
-    """Port of msm_sim.horner_total."""
+    """Port of msm_sim.horner_total. The kernel runs the same chain on one
+    warp, each group op as a program of independent field operations
+    (ops/warp_program.py); every field result is canonical, so the two agree
+    bit for bit."""
     curve = curve_for(tag)
     tot = _horner_windows(curve, planes_to_point(wins, tag), wins.shape[1], c)
     return point_to_planes(tot, tag)
+
+
+@functools.lru_cache(maxsize=None)
+def _horner_program(tag: str, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(warp_program.encode(tag)).to(device)
 
 
 @_build.counted
@@ -392,8 +485,10 @@ def horner_total(tag, wins, c: int):
     if wins.dim() != 2 or wins.shape[0] != 3 * rows_for(tag):
         raise ValueError("horner_total: shape mismatch")
     out = torch.empty((wins.shape[0],), dtype=torch.int32, device=wins.device)
+    prog = _horner_program(tag, wins.device)
     lib = _build.library()
     horner_total.launches += 1
-    err = lib.kzk_horner_total(wins.data_ptr(), out.data_ptr(), wins.shape[1], c, int(tag == "fq2"), _stream(wins))
+    err = lib.kzk_horner_total(wins.data_ptr(), out.data_ptr(), wins.shape[1], c, prog.data_ptr(), prog.numel(),
+                               int(tag == "fq2"), _stream(wins))
     _build.check(err, "horner_total")
     return out

@@ -20,7 +20,7 @@ Sizes chosen for the H100 (not carried over from the TPU tuning):
   chunking: one launch scans every window.
 - `_MIN_SLABS` = 32: each lane walks at least 32 entries, so short streams
   (the witness MSMs) take fewer lanes; every lane adds two entries to the
-  boundary sequence that K5 merges in up to log2(2V) passes.
+  boundary sequence that K5 reduces (three launches at 2V = 2^16).
 - `fused_window_bits` keeps the JAX cost model's form (n adds per window
   plus ~2.6 * 2^(c-1) for the reduction and a fixed per-window overhead).
 
@@ -164,7 +164,8 @@ def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c
     rows' real prefixes into the first `cap` stream slots. The stream,
     padded to whole lanes, runs through K4 in one launch of `v` lanes, which
     writes every bucket that lies inside a lane into the bucket table; the
-    buckets that cross lanes resolve in the boundary merge (K5).
+    boundary merge (K5) writes the buckets that cross lanes into the same
+    table. No host sync between K4 and K6.
     """
     dev = scalars.device
     R = rows_for(tag)
@@ -225,25 +226,12 @@ def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c
         tbl,
     )
 
-    # the boundary sequence: (head, tail) per lane, in order
-    m2 = 2 * V
-    bkeys = torch.stack([hk, tk], dim=1).reshape(m2)
+    # the boundary sequence, (head, tail) per lane in order: K5 writes the
+    # totals of the buckets that cross lanes into the table
+    bkeys = torch.stack([hk, tk], dim=1).reshape(2 * V)
     bkeys = torch.cummax(bkeys, dim=0).values.int().contiguous()  # fill -1/-2 sentinels
-    bpts = torch.stack([hpt, tpt], dim=2).reshape(3 * R, m2).contiguous()
-    # a key's boundary segment of r entries needs ceil(log2 r) passes; only
-    # weighted buckets count (bucket 0 of each window has weight 0, ids >=
-    # n_seg are no buckets)
-    bclip = bkeys.long().clamp(0, n_seg)
-    runs = torch.bincount(bclip, minlength=n_seg + 1)[:n_seg]
-    runs[::NB] = 0
-    merged = cuda_msm.boundary_merge(tag, bkeys, bpts, (max(int(runs.max()), 1) - 1).bit_length())
-
-    # overlay the cross-lane bucket totals from the merged segment leaders
-    lpos = torch.full((n_seg + 1,), m2, dtype=torch.int64, device=dev).scatter_reduce(
-        0, bclip, torch.arange(m2, device=dev), reduce="amin"
-    )[:n_seg]
-    has = torch.nonzero(lpos < m2).squeeze(1)
-    tbl[:, has] = merged[:, lpos[has]]
+    bpts = torch.stack([hpt, tpt], dim=2).reshape(3 * R, 2 * V).contiguous()
+    cuda_msm.boundary_merge(tag, bkeys, bpts, tbl)
 
     wins = cuda_msm.weighted_bucket_total(tag, tbl.reshape(3 * R, rows, NB))
     return planes_to_point(cuda_msm.horner_total(tag, wins, c), tag)

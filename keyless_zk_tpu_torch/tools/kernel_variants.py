@@ -12,19 +12,27 @@ under build/ and built beside the shipped library:
 - `wide`: the Montgomery product in 64-bit C arithmetic instead of carry
   chains (the port's first product), its calls as shipped;
 - `occupancy`: K4's kernel held to 128 registers (`__launch_bounds__(128,
-  4)`: four blocks of 128 threads per SM where the shipped kernel fits two).
+  4)`: four blocks of 128 threads per SM where the shipped kernel fits two);
+- `sliced`: K7's product steps run each Fq product on a group of 8 lanes,
+  one 32-bit word each (the column sums, the Montgomery quotient and the
+  carries passed by warp shuffles, the last carries and the conditional
+  subtract by carry-lookahead over ballots), four products at a time,
+  where the shipped kernel gives each product one lane.
 
 Each variant's outputs must equal the shipped library's, bit for bit, on
 the same inputs (chip_smoke.py holds the shipped kernels to their plain
 versions). The inputs are random, at the shapes of the full-width proof's
 MSMs (ops/msm.py): msm_h's 2^25-entry G1 stream over 16 x 32769 buckets,
 scanned by one wave of lanes at two and at four blocks per SM, and a G2
-witness MSM's 2^20-entry stream over 22 x 2049 buckets. Times are
-CUDA-event ms per call (K4's include zeroing its bucket table), the
-variants in order and then in reverse; K6 is also timed at
-several lane counts per window with the shipped library. Per variant the
-script prints the build seconds, ptxas's registers and spills and the SASS
-instruction count of each kernel.
+witness MSM's 2^20-entry stream over 22 x 2049 buckets; K7 at the witness
+MSMs' 22 windows of c = 12 and msm_h's 16 of c = 16. Times are
+CUDA-event ms per call (K4's and K5's include resetting their bucket
+table), the variants in order and then in reverse; with the shipped
+library K6 is also timed at several lane counts per window, and K5 at tiles
+of 128, 256 and 512 entries (G1) on boundary sequences of the main path's
+lengths with one key over most of the sequence, as the keyless witness
+gives. Per variant the script prints the build seconds, ptxas's registers
+and spills and the SASS instruction count of each kernel.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
 from ..fields.torch_field import FR
 from ..ops import _build, cuda_field, cuda_msm, msm, testgen
 
-KERNELS = ("mont_mul_kernel", "window_scan_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
+KERNELS = ("mont_mul_kernel", "window_scan_kernel", "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel",
+           "horner_kernel")
 
 _GMUL = "template <class M>\n__device__ __noinline__ Fp<M> gmul("
 _MUL = "__device__ __forceinline__ Fp<M> mul(const Fp<M>& a, const Fp<M>& b) {\n"
@@ -77,6 +86,75 @@ _WIDE_MUL_BODY = """  uint32_t t[10];
   return fp_csub<M>(t, t[8]);
 """
 _SCAN_BOUNDS = "__launch_bounds__(128)\nwindow_scan_kernel("
+_RUN_STEPS = "__device__ __forceinline__ void run_steps("
+_SLICED_RUN_STEPS = r"""// word j of a * b * 2^-256 mod q, for lane j of a group of 8 lanes that
+// holds word j of a and b. Column sums stay 64-bit and redundant through
+// the eight CIOS rounds; column 0's low word is exact, so each round's
+// quotient is.
+__device__ __forceinline__ uint32_t sliced_mul_word(uint32_t a, uint32_t b, int j) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const uint32_t pj = FqMod::p(j);
+  uint64_t acc = 0, acc8 = 0;  // column j; column 8 (lane 7)
+  for (int i = 0; i < 8; i++) {
+    const uint32_t bi = __shfl_sync(kAll, b, i, 8);
+    uint64_t t = (uint64_t)a * bi;
+    uint32_t hi_in = __shfl_up_sync(kAll, (uint32_t)(t >> 32), 1, 8);
+    acc += (uint64_t)(uint32_t)t + (j ? hi_in : 0u);
+    if (j == 7) acc8 += t >> 32;
+    const uint32_t m = __shfl_sync(kAll, (uint32_t)acc * FqMod::n0, 0, 8);
+    t = (uint64_t)m * pj;
+    hi_in = __shfl_up_sync(kAll, (uint32_t)(t >> 32), 1, 8);
+    acc += (uint64_t)(uint32_t)t + (j ? hi_in : 0u);
+    if (j == 7) acc8 += t >> 32;
+    // divide by 2^32: column 0's low word is zero now
+    const uint64_t up = __shfl_down_sync(kAll, acc, 1, 8);
+    const uint64_t carry0 = acc >> 32;
+    acc = j == 7 ? acc8 : up;
+    if (j == 0) acc += carry0;
+    if (j == 7) acc8 = 0;
+  }
+  // one parallel carry step leaves carries of 0 or 1, then exact
+  // carry-lookahead: carry into bit j of (G|P) + G
+  const uint64_t c1 = __shfl_up_sync(kAll, acc >> 32, 1, 8);
+  acc = (acc & 0xffffffffull) + (j ? c1 : 0ull);
+  const uint32_t x = (uint32_t)acc;
+  const uint32_t up_carry = __shfl_up_sync(kAll, (uint32_t)(acc >> 32), 1, 8);  // every lane shuffles
+  const uint32_t cin = j ? up_carry : 0u;
+  const int shift = threadIdx.x & 24;
+  uint32_t gen = (__ballot_sync(kAll, x == 0xffffffffu && cin) >> shift) & 0xff;
+  uint32_t prop = (__ballot_sync(kAll, x + cin == 0xffffffffu) >> shift) & 0xff;
+  uint32_t carries = ((gen | prop) + gen) ^ (gen | prop) ^ gen;
+  const uint32_t w = x + cin + ((carries >> j) & 1);
+  // w >= q: subtract, the borrows by the same lookahead
+  gen = (__ballot_sync(kAll, w < pj) >> shift) & 0xff;
+  prop = (__ballot_sync(kAll, w == pj) >> shift) & 0xff;
+  const uint32_t sum = (gen | prop) + gen;
+  const uint32_t borrows = sum ^ (gen | prop) ^ gen;
+  return (sum >> 8) & 1 ? w : w - pj - ((borrows >> j) & 1);
+}
+
+// The product steps put each Fq product on a group of 8 lanes (lane 8 g +
+// j holds word j), four products at a time; the add and sub steps run one
+// operation per lane as shipped.
+__device__ __forceinline__ void run_steps(Fq* slot, const uint32_t* code, int n_steps, int lane) {
+  const int g = lane >> 3, j = lane & 7;
+  for (int s = 0; s < n_steps; s++) {
+    const uint32_t* st = code + s * kLanes;
+    if ((st[0] >> 30) == 1) {
+      for (int k = 0; k < kLanes && (st[k] >> 30); k += 4) {
+        const uint32_t op = st[k + g];
+        const uint32_t r = sliced_mul_word(slot[(op >> 10) & 1023u].v[j], slot[op & 1023u].v[j], j);
+        if (op >> 30) slot[(op >> 20) & 1023u].v[j] = r;
+      }
+    } else {
+      const uint32_t op = st[lane];
+      if (op >> 30)
+        slot[(op >> 20) & 1023u] = add(slot[(op >> 10) & 1023u], negate_if(slot[op & 1023u], (op >> 30) == 3));
+    }
+    __syncwarp();
+  }
+}
+"""
 
 
 def _inline(src: str) -> str:
@@ -90,6 +168,12 @@ def _wide(src: str) -> str:
     return src[:start] + _WIDE_MUL_BODY + src[end:]
 
 
+def _sliced(src: str) -> str:
+    start = src.index(_RUN_STEPS)
+    end = src.index("\n}\n", start) + 3
+    return src[:start] + _SLICED_RUN_STEPS + src[end:]
+
+
 def _occupancy(src: str) -> str:
     assert _SCAN_BOUNDS in src, "msm_scan.cu: window_scan_kernel's launch bounds not found"
     return src.replace(_SCAN_BOUNDS, _SCAN_BOUNDS.replace("(128)", "(128, 4)"))
@@ -101,6 +185,7 @@ VARIANTS = {
     "inline": [("field.cuh", _inline)],
     "wide": [("field.cuh", _wide)],
     "occupancy": [("msm_scan.cu", _occupancy)],
+    "sliced": [("msm_reduce.cu", _sliced)],
 }
 
 
@@ -200,6 +285,18 @@ def bucket_planes(tag: str, table, tinf, n: int, gen):
     return cuda_msm.point_to_planes(p, tag)
 
 
+def merge_inputs(tag: str, m: int, table, gen):
+    """A K5 boundary sequence of m entries like the main path's: one key
+    (window 0's digit-1 bucket) over 90% of it, then runs of one to eight
+    entries; points from the table."""
+    dev = table[0].device
+    runs = torch.randint(1, 9, (m,), generator=gen, device=dev)
+    runs[0] = m * 9 // 10
+    starts = torch.cumsum(runs, 0) - runs
+    keys = (torch.searchsorted(starts, torch.arange(m, device=dev), right=True)).int().contiguous()
+    return keys, bucket_planes(tag, *table, m, gen)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -212,6 +309,7 @@ def main() -> int:
     libs = build_variants()
     shipped_library = _build.library
     k6_budget = cuda_msm._BUCKET_LANES, cuda_msm._MIN_BUCKETS_PER_LANE
+    merge_tiles = dict(cuda_msm._MERGE_TILE)
 
     def use(name):
         _build.library = lambda: libs[name]
@@ -243,10 +341,22 @@ def main() -> int:
         k6_tables[(tag, wn, nb)] = bucket_planes(tag, *tables[tag], wn * nb, gen).reshape(3 * R, wn, nb).contiguous()
         cases.append((f"K6 weighted_bucket_total {tag} Wn={wn} NB={nb}",
                       lambda tag=tag, t=k6_tables[(tag, wn, nb)]: cuda_msm.weighted_bucket_total(tag, t)))
-    for tag in ("fq", "fq2"):
+    for tag, wn, c in (("fq", 22, 12), ("fq2", 22, 12), ("fq", 16, 16)):
         R = cuda_msm.rows_for(tag)
-        wins = bucket_planes(tag, *tables[tag], 22, gen).reshape(3 * R, 22).contiguous()
-        cases.append((f"K7 horner_total {tag} Wn=22 c=12", lambda tag=tag, w=wins: cuda_msm.horner_total(tag, w, 12)))
+        wins = bucket_planes(tag, *tables[tag], wn, gen).reshape(3 * R, wn).contiguous()
+        cases.append((f"K7 horner_total {tag} Wn={wn} c={c}",
+                      lambda tag=tag, w=wins, c=c: cuda_msm.horner_total(tag, w, c)))
+    merges = [(tag, m, n_seg, *merge_inputs(tag, m, tables[tag], gen))
+              for tag, m, n_seg in (("fq", 1 << 16, 22 * 2049), ("fq", 67_584, 16 * 32769), ("fq2", 1 << 16, 22 * 2049))]
+    for tag, m, n_seg, keys, pts in merges:
+        tbl = torch.zeros((3 * cuda_msm.rows_for(tag), n_seg), dtype=torch.int32, device=dev)
+
+        def merge(tag=tag, keys=keys, pts=pts, tbl=tbl):
+            tbl.zero_()
+            cuda_msm.boundary_merge(tag, keys, pts, tbl)
+            return tbl
+
+        cases.append((f"K5 boundary_merge {tag} m={m}", merge))
 
     ok = True
     results: dict = {}
@@ -278,9 +388,25 @@ def main() -> int:
                 ms = cuda_ms(lambda: cuda_msm.weighted_bucket_total(tag, t))
                 results.setdefault(f"K6 {tag} Wn={wn} NB={nb} by lanes per window", {})[lanes] = round(ms, 4)
                 log(f"K6 {tag} Wn={wn} NB={nb}: {lanes} lanes per window {ms:.3f} ms (shipped)")
+        for tag, m, n_seg, keys, pts in merges:
+            tbl = torch.zeros((3 * cuda_msm.rows_for(tag), n_seg), dtype=torch.int32, device=dev)
+            want = None
+            for tile in (128, 256, 512) if tag == "fq" else (64, 128, 256):
+                cuda_msm._MERGE_TILE[tag] = tile
+                tbl.zero_()
+                cuda_msm.boundary_merge(tag, keys, pts, tbl)
+                want = tbl.clone() if want is None else want
+                equal = torch.equal(tbl, want)
+                ok &= equal
+                ms = cuda_ms(lambda: cuda_msm.boundary_merge(tag, keys, pts, tbl))
+                results.setdefault(f"K5 {tag} m={m} by tile", {})[tile] = round(ms, 4)
+                log(f"K5 {tag} m={m}: tiles of {tile}, {len(cuda_msm.merge_levels(m, tile))} launches, "
+                    f"{ms:.3f} ms, table equal to the first tile's: {equal} (shipped)")
+            cuda_msm._MERGE_TILE[tag] = merge_tiles[tag]
     finally:
         _build.library = shipped_library
         cuda_msm._BUCKET_LANES, cuda_msm._MIN_BUCKETS_PER_LANE = k6_budget
+        cuda_msm._MERGE_TILE.update(merge_tiles)
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"ok": ok, "card": card, "ms": results}), flush=True)

@@ -1,5 +1,5 @@
 """The build's ptxas report (ops/_build.py `ptxas_report`), which
-chip_smoke.py prints for the K4 and K6 kernels: registers, spills and stack
+chip_smoke.py prints for the K4-K7 kernels: registers, spills and stack
 frame read from nvcc's -Xptxas -v output."""
 
 from keyless_zk_tpu_torch.ops import _build

@@ -4,10 +4,10 @@ contracts, keyless_zk_tpu/ops/msm_sim.py.
 On a CPU tensor each kernel wrapper runs its plain version, which is what
 these tests call. The port's layouts at the kernel boundary (lane-contiguous
 (3R, ...) planes, a point table gathered inside the scan) differ from the
-TPU's (8, V/8) tiles; the tests convert. K4, K5 and K7 add in the contract's
-order and agree bit for bit; K4's bucket table equals the contract's emit
-gathered at the interior run ends; K6 follows its CUDA kernel's schedule
-and agrees as affine points.
+TPU's (8, V/8) tiles; the tests convert. K4 and K7 agree with the contract
+bit for bit; K4's bucket table equals the contract's emit gathered at the
+interior run ends; K5 and K6 follow their CUDA kernels' schedules and agree
+as affine points.
 
 G1 runs every contract here; the G2 cases call the same checks from
 test_torch_msm_kernels_g2.py (K4, K7), test_torch_msm_merge_g2.py (K5) and
@@ -121,22 +121,40 @@ def check_window_scan(tag, V=16, L=6, seed=1):
     assert _eq(jhk, hk.reshape(1, 8, V // 8)) and _eq(jtk, tk.reshape(1, 8, V // 8))
 
 
-def check_boundary_merge(tag):
+# K5 sequences of 32 entries: run lengths of keys -1 (leading sentinels),
+# 0, 1, ... in order; with n_seg = 8 the keys 8 and 9 are no buckets.
+# "mixed" has runs that cross tiles of 4 and 8 and one of 11 entries;
+# "bucket last" ends on a bucket, which the last level writes; "one" is one
+# key over the whole sequence.
+MERGE_RUNS = {"mixed": [3, 2, 1, 11, 1, 2, 5, 1, 3, 2, 1], "bucket last": [3, 2, 1, 11, 1, 2, 5, 1, 6],
+              "one": [0, 0, 0, 32]}
+MERGE_N_SEG = 8
+
+
+def check_boundary_merge(tag, tile, pattern, monkeypatch):
+    """K5's tile schedule (tiles shrunk to `tile` entries, so that the
+    sequence takes two or three levels) against msm_sim.boundary_merge: the
+    table's column k holds, as an affine point, the contract's leader total
+    of key k for every key in [0, n_seg); every other column is untouched."""
     rng = np.random.default_rng(2)
     R = cuda_msm.rows_for(tag)
+    curve = cuda_msm.curve_for(tag)
+    monkeypatch.setitem(cuda_msm._MERGE_TILE, tag, tile)
     m, n_pts = 32, 24
     table, tinf = _table(tag, rng, n_pts)
-    keys = np.maximum.accumulate(np.cumsum(rng.random(m) < 0.3)).astype(np.int32)
-    keys[:3] = -1  # cummax-filled sentinels lead the sequence
+    keys = np.repeat(np.arange(-1, len(MERGE_RUNS[pattern]) - 1), MERGE_RUNS[pattern]).astype(np.int32)
+    assert keys.shape == (m,) and len(cuda_msm.merge_levels(m, tile)) > 1
     pts = _planes(tag, table, tinf, torch.from_numpy(rng.integers(0, n_pts + 1, m)))
-    for steps in (2, 5):
-        got = cuda_msm.boundary_merge(tag, torch.from_numpy(keys), pts, steps)
-        want = msm_sim.boundary_merge(
-            tag, jnp.asarray(keys[None]), *(_u32(pts[i * R : (i + 1) * R][None]) for i in range(3)),
-            max_steps=jnp.int32(steps),
-        )
-        for i in range(3):
-            assert _eq(want[i][0], got[i * R : (i + 1) * R])
+    tbl = torch.full((3 * R, MERGE_N_SEG), 7, dtype=torch.int32)
+    cuda_msm.boundary_merge(tag, torch.from_numpy(keys), pts, tbl)
+    want = msm_sim.boundary_merge(tag, jnp.asarray(keys[None]), *(_u32(pts[i * R : (i + 1) * R][None]) for i in range(3)))
+    want = torch.cat([torch.from_numpy(np.asarray(w[0]).astype(np.int32)) for w in want])
+    cols = [k for k in range(MERGE_N_SEG) if (keys == k).any()]
+    leaders = [int(np.argmax(keys == k)) for k in cols]
+    assert curve.decode_jacobian(cuda_msm.planes_to_point(tbl[:, cols], tag)) == curve.decode_jacobian(
+        cuda_msm.planes_to_point(want[:, leaders], tag))
+    rest = [k for k in range(MERGE_N_SEG) if k not in cols]
+    assert (tbl[:, rest] == 7).all()
 
 
 def check_weighted_bucket_total(tag, lanes=None, sum_threads=None, monkeypatch=None):
@@ -172,12 +190,14 @@ def check_weighted_bucket_total(tag, lanes=None, sum_threads=None, monkeypatch=N
         assert dec[w] == group.mul(gen, k)
 
 
-def check_horner_total(tag):
+def check_horner_total(tag, wn=5, c=4, rows=None):
+    """K7 against msm_sim.horner_total, bit for bit; `rows` picks the
+    window totals' table rows (the last row is infinity)."""
     rng = np.random.default_rng(4)
     R = cuda_msm.rows_for(tag)
-    wn, c = 5, 4
     table, tinf = _table(tag, rng, 8)
-    wins = _planes(tag, table, tinf, torch.from_numpy(rng.integers(0, 9, wn)))
+    rows = rng.integers(0, 9, wn) if rows is None else np.asarray(rows)
+    wins = _planes(tag, table, tinf, torch.from_numpy(rows))
     got = cuda_msm.horner_total(tag, wins, c)
     want = msm_sim.horner_total(tag, *(_u32(wins[i * R : (i + 1) * R].T) for i in range(3)), c)
     for i in range(3):
@@ -193,9 +213,24 @@ def test_window_scan_matches_contract_long_lanes():
     check_window_scan("fq", V=8, L=13)
 
 
-@pytest.mark.parametrize("tag", ["fq"])
-def test_boundary_merge_matches_contract(tag):
-    check_boundary_merge(tag)
+@pytest.mark.parametrize("tag,tile,pattern", [
+    pytest.param("fq", 4, "mixed", id="fq"),
+    pytest.param("fq", 8, "mixed", id="fq-tile8"),
+    pytest.param("fq", 4, "one", id="fq-one-segment"),
+    pytest.param("fq", 4, "bucket last", id="fq-bucket-last"),
+])
+def test_boundary_merge_matches_contract(tag, tile, pattern, monkeypatch):
+    check_boundary_merge(tag, tile, pattern, monkeypatch)
+
+
+def test_merge_levels_at_main_path_sizes():
+    """Three launches of K5 per MSM at the main path's boundary sequences:
+    2^16 entries (the witness MSMs, G1 tiles of 256 and G2 of 128) and
+    67,584 (the H MSM's 33,792 lanes); one launch for a single tile."""
+    assert cuda_msm.merge_levels(1 << 16, 256) == [1 << 16, 512, 4]
+    assert cuda_msm.merge_levels(1 << 16, 128) == [1 << 16, 1024, 16]
+    assert cuda_msm.merge_levels(67_584, 256) == [67_584, 528, 6]
+    assert cuda_msm.merge_levels(256, 256) == [256]
 
 
 @pytest.mark.parametrize("tag", ["fq"])
@@ -223,3 +258,10 @@ def test_bucket_threads_fill_the_card():
 
 def test_horner_total_matches_contract():
     check_horner_total("fq")
+
+
+def test_horner_total_windows_at_infinity():
+    """Wn 3, c 1: the top and the middle window totals at infinity (row 8),
+    then the top alone."""
+    check_horner_total("fq", 3, 1, [5, 8, 8])
+    check_horner_total("fq", 3, 1, [5, 2, 8])
