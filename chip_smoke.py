@@ -9,16 +9,18 @@ Phases, in order; any failure exits non-zero:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compile the CUDA kernels from keyless_zk_tpu_torch/csrc, and
-   print ptxas's registers, spill bytes and stack frame of the K4-K7
+   print ptxas's registers, spill bytes and stack frame of the K3-K7
    kernels from build.log;
 3. the Montgomery product kernel (K1) against its plain PyTorch version on
    the card, Fr and Fq at 2^22 elements with the main path's broadcasts,
    with both times (exact integers: they must be equal);
 4. the group-law kernels (K3: complete mixed add, doubling, full add) on
    random points with every edge case planted (either side at infinity,
-   both, P == Q, P == -Q), G1 at 2^20 and G2 at 2^18 points, against their
-   plain versions; the full add's launches are counted here (no path calls
-   it);
+   both, P == Q, P == -Q), at sizes that leave the last block of 128
+   partial (G1 2^20 + 37, G2 2^18 + 61 points), against their plain
+   versions; the mixed add also with one affine point for the whole batch
+   (nq == 1), planted as P == Q and P == -Q in some lanes, and at
+   infinity; the full add's launches are counted here (no path calls it);
 5. a small proof (synthetic key at domain 2^12) on the card, which runs the
    matmul NTT, and on the CPU through the plain versions, which runs the
    butterfly NTT, with the same r and s: the proofs must be equal, and
@@ -47,7 +49,9 @@ Phases, in order; any failure exits non-zero:
    with m = 2^21 - 4 (domain 2^21, n_vars 2^21 - 2), built with the port's
    ConstraintSystem, `groth16_setup` on the card with pinned toxic values
    (its launch counts: K3's madd and dbl > 0; one mid-ladder dbl and madd
-   call per group kept and replayed against the plain versions), a proof
+   call per group and pass size kept and replayed against the plain
+   versions, and K3's share of the device ladders: launches x ms per
+   group), a proof
    under that key, and the port's pairing check: true for the proof,
    false with one coordinate changed.
 
@@ -218,13 +222,15 @@ def record(records: dict, name, err, ms, plain_ms, note, *, moved: int, imad: fl
     check(err == 0, f"{name} differs from its plain version ({note})")
 
 
-def compare(records, name, kernel, plain, args, note, *, imad: float, reps: int = 3) -> None:
+def compare(records, name, kernel, plain, args, note, *, imad: float, reps: int = 3) -> float:
     """One input through the kernel wrapper and its plain version (with K1
-    routed to its plain version too), both timed; equal or fail."""
+    routed to its plain version too), both timed; equal or fail. Returns
+    the kernel's ms."""
     got, ms = cuda_ms(lambda: kernel(*args), reps=reps)
     with plain_kernels():
         want, plain_ms = cuda_ms(lambda: plain(*args), warm=False)
     record(records, name, max_abs_err(got, want), ms, plain_ms, note, moved=nbytes(args, got), imad=imad)
+    return ms
 
 
 def mont_mul_checks(dev, records: dict) -> None:
@@ -276,7 +282,11 @@ def _scaled(curve, x, y, lam):
 def k3_inputs(tag: str, n: int, dev):
     """Jacobian batches p and q (random z), the affine form of q, with every
     edge case planted in lanes i % 64 == 0..4: p at infinity, q at infinity,
-    p == q, p == -q, both at infinity."""
+    p == q, p == -q, both at infinity. Also the mixed add's inputs with one
+    affine point for the batch, {label: (p, (qx, qy, q_inf))}: q's first
+    point (finite) with p planted as that point in lanes i % 64 == 5 and as
+    its negation in lanes i % 64 == 6 (each with its own z), and a point at
+    infinity."""
     import torch
 
     from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
@@ -305,19 +315,29 @@ def k3_inputs(tag: str, n: int, dev):
     p = curve.select(p_inf, JacPoint(p.x, p.y, torch.zeros_like(p.z)), p)
     q = _scaled(curve, qx, qy, lam())
     q = curve.select(q_inf, JacPoint(q.x, q.y, torch.zeros_like(q.z)), q)
-    return JacPoint(*(c.contiguous() for c in p)), JacPoint(*(c.contiguous() for c in q)), (qx, qy, q_inf)
+
+    q1 = tuple(t[:1].contiguous() for t in (qx, qy, q_inf))
+    x1, y1 = (t.expand(n, *t.shape[1:]).contiguous() for t in q1[:2])
+    bp = curve.select(lane == 5, _scaled(curve, x1, y1, lam()),
+                      curve.select(lane == 6, _scaled(curve, x1, f.neg(y1), lam()), p))
+    broadcast = {"q planted as P == Q and P == -Q": (JacPoint(*(c.contiguous() for c in bp)), q1),
+                 "q at infinity": (p, (q1[0], q1[1], torch.ones_like(q1[2])))}
+    return (JacPoint(*(c.contiguous() for c in p)), JacPoint(*(c.contiguous() for c in q)), (qx, qy, q_inf),
+            broadcast)
 
 
 def k3_checks(dev, records: dict) -> int:
-    """madd, dbl and add on random batches with the edge cases, G1 2^20 and
-    G2 2^18 points; returns the full add's launches (its only ones)."""
+    """madd, dbl and add on random batches with the edge cases, G1 2^20 + 37
+    and G2 2^18 + 61 points (the last block of 128 is partial), and madd
+    with one affine point for the batch (untimed); returns the full add's
+    launches (its only ones)."""
     import torch
 
     from keyless_zk_tpu_torch.ops import cuda_curve
 
     add_launches = 0
-    for tag, n in (("fq", 1 << 20), ("fq2", 1 << 18)):
-        p, q, (qx, qy, q_inf) = k3_inputs(tag, n, dev)
+    for tag, n in (("fq", (1 << 20) + 37), ("fq2", (1 << 18) + 61)):
+        p, q, (qx, qy, q_inf), broadcast = k3_inputs(tag, n, dev)
         torch.cuda.synchronize()
         n_dbl_affine = int(((torch.arange(n, device=dev) % 64) == 2).sum())
         compare(records, "curve_madd", cuda_curve.curve_madd, cuda_curve.madd_plain, (p, qx, qy, q_inf, tag),
@@ -329,7 +349,12 @@ def k3_checks(dev, records: dict) -> int:
         compare(records, "curve_add", cuda_curve.curve_add, cuda_curve.add_plain, (p, q, tag),
                 f"{tag} n={n}, edge cases planted", imad=group_imad("add", tag, n))
         add_launches += cuda_curve.curve_add.launches - before
-        del p, q, qx, qy, q_inf
+        for label, (bp, q1) in broadcast.items():
+            got = cuda_curve.curve_madd(bp, *q1, tag)
+            with plain_kernels():
+                want = cuda_curve.madd_plain(bp, *q1, tag)
+            planted(records, "curve_madd", max_abs_err(got, want), f"{tag} n={n}, nq=1, {label}")
+        del p, q, qx, qy, q_inf, broadcast
         torch.cuda.empty_cache()
     return add_launches
 
@@ -356,12 +381,13 @@ def _clone(a):
 
 
 @contextlib.contextmanager
-def capture_calls(module, names, store: dict, at: int = 0):
+def capture_calls(module, names, store: dict, at: int = 0, seen: dict | None = None):
     """While a path runs, keep a copy of the inputs of the at-th call of each
     kernel wrapper `names` of `module` per argument signature (tensor and
-    point shapes, tags and integer arguments)."""
+    point shapes, tags and integer arguments); `seen` receives the calls per
+    signature."""
     saved = {name: getattr(module, name) for name in names}
-    seen: dict = {}
+    seen = {} if seen is None else seen
 
     class Spy:
         # the wrappers bump `<own name>.launches`, a module global that
@@ -371,8 +397,8 @@ def capture_calls(module, names, store: dict, at: int = 0):
 
         def __call__(self, *args):
             sig = _signature(self.name, args)
-            seen[sig] = seen.get(sig, -1) + 1
-            if seen[sig] == at:
+            seen[sig] = seen.get(sig, 0) + 1
+            if seen[sig] == at + 1:
                 store[sig] = tuple(_clone(a) for a in args)
             return self.fn(*args)
 
@@ -799,8 +825,9 @@ def setup_path(dev, counts_out: dict, records: dict, domain_pow: int = 21) -> No
         f"({r1cs.n_constraints} constraints, {r1cs.n_wires} wires)")
 
     calls: dict = {}
+    seen: dict = {}
     _build.reset_launch_counts()
-    with capture_calls(cuda_curve, ("curve_dbl", "curve_madd"), calls, at=100):
+    with capture_calls(cuda_curve, ("curve_dbl", "curve_madd"), calls, at=100, seen=seen):
         t0 = time.perf_counter()
         res = groth16_setup(r1cs, toxic=TOXIC, device=dev)
         torch.cuda.synchronize()
@@ -814,15 +841,23 @@ def setup_path(dev, counts_out: dict, records: dict, domain_pow: int = 21) -> No
     for name in ("curve_dbl", "curve_madd"):
         for tag in ("fq", "fq2"):
             check(any(sig[0] == name and sig[-1] == tag for sig in calls), f"no setup call of {name} ({tag}) captured")
+    check(set(seen) == set(calls), "a setup ladder call signature ran too few times to be captured")
+    k3_seconds: dict = {}
     for sig, args in calls.items():
         name, tag = sig[0], sig[-1]
         n = args[0].x.shape[0]
         if name == "curve_dbl":
-            compare(records, name, cuda_curve.curve_dbl, cuda_curve.dbl_plain, args,
-                    f"setup ladder step, {tag} n={n}", imad=group_imad("dbl", tag, n))
+            ms = compare(records, name, cuda_curve.curve_dbl, cuda_curve.dbl_plain, args,
+                         f"setup ladder step, {tag} n={n}", imad=group_imad("dbl", tag, n))
         else:
-            compare(records, name, cuda_curve.curve_madd, cuda_curve.madd_plain, args,
-                    f"setup ladder step, {tag} n={n}, generator broadcast", imad=group_imad("madd", tag, n))
+            ms = compare(records, name, cuda_curve.curve_madd, cuda_curve.madd_plain, args,
+                         f"setup ladder step, {tag} n={n}, generator broadcast", imad=group_imad("madd", tag, n))
+        k3_seconds[f"{name} {tag}"] = k3_seconds.get(f"{name} {tag}", 0.0) + seen[sig] * ms / 1e3
+        log(f"  {seen[sig]} launches of this signature: {seen[sig] * ms / 1e3:.3f} s")
+    k3_total = sum(k3_seconds.values())
+    log(f"setup path: K3 in the device ladders (s, launches x ms): "
+        f"{json.dumps({k: round(v, 3) for k, v in k3_seconds.items()})}, {k3_total:.2f} s of "
+        f"{res.seconds['device']:.2f} s, the rest {res.seconds['device'] - k3_total:.2f} s")
     del calls
     torch.cuda.empty_cache()
 
@@ -844,7 +879,8 @@ def setup_path(dev, counts_out: dict, records: dict, domain_pow: int = 21) -> No
     check(not bad, "a tampered proof verifies")
 
 
-PTXAS_KERNELS = ("window_scan_kernel", "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
+PTXAS_KERNELS = ("madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel", "merge_tile_kernel",
+                 "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
 
 
 def main() -> int:
@@ -877,9 +913,9 @@ def main() -> int:
         _build.library()
         log(f"build: {secs:.1f} s -> {lib}")
         report = _build.ptxas_report((lib.parent / "build.log").read_text(), PTXAS_KERNELS)
-        log("ptxas (K4-K7): " + json.dumps(report))
-        check(all(any(k.startswith(name) for k in report) for name in PTXAS_KERNELS),
-              "build.log lacks the ptxas report of a K4-K7 kernel")
+        log("ptxas (K3-K7): " + json.dumps(report))
+        check(all(any(k.startswith(name + " ") for k in report) for name in PTXAS_KERNELS),
+              "build.log lacks the ptxas report of a K3-K7 kernel")
         mont_mul_checks(dev, records)
         counts[None] = {"curve_add": k3_checks(dev, records)}
         small_proof(dev)

@@ -144,11 +144,18 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
+def mangles(name: str, mangled: str) -> bool:
+    """Whether a mangled (Itanium) symbol names the function `name`: its
+    length-prefixed identifier occurs in it (so `add_kernel` does not match
+    `madd_kernel`)."""
+    return f"{len(name)}{name}" in mangled
+
+
 def ptxas_report(log_text: str, kernels) -> dict:
-    """Registers, spill bytes and stack frame of each kernel whose mangled
-    name contains one of `kernels`, per field ("<name> g1" / "<name> g2"),
-    from nvcc's -Xptxas -v output (build.log), with the 128-thread blocks
-    per SM that its registers allow."""
+    """Registers, spill bytes and stack frame of each kernel of `kernels`,
+    per field ("<name> g1" / "<name> g2"), from nvcc's -Xptxas -v output
+    (build.log), with the 128-thread blocks per SM that its registers allow
+    (K3's blocks are 128 threads)."""
     out: dict = {}
     entry = props = None
     for line in log_text.splitlines():
@@ -156,8 +163,8 @@ def ptxas_report(log_text: str, kernels) -> dict:
             entry = line.split("'")[1]
         elif "Function properties for" in line:
             props = line.rsplit(" ", 1)[-1].strip()
-        elif entry and any(k in entry for k in kernels):
-            key = next(k for k in kernels if k in entry) + (" g1" if "FqMod" in entry else " g2")
+        elif entry and any(mangles(k, entry) for k in kernels):
+            key = next(k for k in kernels if mangles(k, entry)) + (" g2" if "Fq2" in entry else " g1")
             rec = out.setdefault(key, {})
             if "bytes stack frame" in line and props == entry:
                 words = line.replace(",", "").split()

@@ -2,14 +2,16 @@
 versions and their wrappers.
 
 The kernels (csrc/curve_ops.cu) replace keyless_zk_tpu/ops/pallas_curve.py
-`madd_pallas`, `dbl_pallas` and `add_pallas`; their caller is key setup's
-fixed-base ladder (circuits/setup.py). Each wrapper dispatches on its
-tensors' device only: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel or raises.
+`madd_pallas`, `dbl_pallas` and `add_pallas`; their callers are key
+setup's fixed-base ladder (circuits/setup.py) and the small-n MSM
+(ops/msm.py `_msm_small`). Each wrapper dispatches on its tensors' device
+only: a CPU tensor takes the plain version, a CUDA tensor launches the
+kernel or raises.
 
 Layout at this boundary: a point batch is a JacPoint of contiguous int32
 coordinate tensors, (n, 16) for G1 ("fq") and (n, 2, 16) for G2 ("fq2"),
-in Montgomery form; infinity is z == 0.
+in Montgomery form, each starting on a 16-byte boundary; infinity is
+z == 0.
 
 Plain versions, equal to the kernels in Jacobian coordinates:
 
@@ -100,6 +102,8 @@ def _check(name: str, tag: str, points, *rest: torch.Tensor) -> int:
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.dtype == torch.bool:
             continue
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: coordinates must start on a 16-byte boundary (the kernels read 16-byte vectors)")
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: coordinates must be int32, got {t.dtype}")
         if tuple(t.shape[1:]) != coord:

@@ -1,0 +1,64 @@
+"""tools/kernel_variants.py's design variants are text edits of csrc/. Each
+edit must find its anchor and change the file it edits, so that no variant
+silently builds the shipped code. The edits run here on the CPU; the builds
+and the timings need the card."""
+
+import re
+
+import pytest
+
+from keyless_zk_tpu_torch.ops import _build
+from keyless_zk_tpu_torch.tools import kernel_variants as kv
+
+EDITED = [name for name, (edits, _) in kv.VARIANTS.items() if edits]
+
+
+def _edited(name: str) -> dict:
+    """{file: (shipped text, edited text)} of a variant, its edits applied
+    in order."""
+    out = {}
+    for file, edit in kv.VARIANTS[name][0]:
+        src = (_build.CSRC / file).read_text()
+        out[file] = (src, edit(out.get(file, (src, src))[1]))
+    return out
+
+
+@pytest.mark.parametrize("name", EDITED)
+def test_variant_edits_find_their_anchors(name):
+    """Each edit changes the text it is given (an anchor that is missing
+    raises), so the variant never builds the shipped code."""
+    for file, edit in kv.VARIANTS[name][0]:
+        src = (_build.CSRC / file).read_text()
+        assert edit(src) != src, f"an edit of {name} leaves {file} as shipped"
+    for file, (src, out) in _edited(name).items():
+        assert out != src, f"{name} leaves {file} as shipped"
+
+
+def _budgets(src: str) -> list[tuple[int, int, int]]:
+    return [tuple(map(int, m)) for m in re.findall(r"madd = (\d+), dbl = (\d+), add = (\d+);", src)]
+
+
+def test_k3_variants_edit_what_they_name():
+    shipped = (_build.CSRC / "curve_ops.cu").read_text()
+    assert "using G2 = Fq2K3;" in shipped and shipped.count("reinterpret_cast<const int4*>(row)") == 1
+    scalar = _edited("k3_scalar")["curve_ops.cu"][1]
+    assert "int4" not in scalar and "row[2 * i + 1] << 16" in scalar and "row[2 * i + 1] = " in scalar
+    assert "using G2 = Fq2;" in _edited("k3_calls")["curve_ops.cu"][1]
+    assert "k3_mul(const Fp<FqMod>& a, const Fp<FqMod>& b)" in _edited("k3_byref")["curve_ops.cu"][1]
+    assert "__forceinline__ Fp<FqMod> k3_mul(" in _edited("k3_inline")["curve_ops.cu"][1]
+    first = _edited("k3_first")["curve_ops.cu"][1]
+    assert "using G2 = Fq2;" in first and "int4" not in first
+    assert "using G1 = Fp<FqMod>;" in first and "k3_mul(const Fp<FqMod>& a" in first
+    assert _budgets(first) == [(1, 1, 1), (1, 1, 1)]
+    assert len(_budgets(shipped)) == 2
+    for name in ("k3_budget_low", "k3_budget_high"):
+        assert _budgets(_edited(name)["curve_ops.cu"][1]) != _budgets(shipped)
+
+
+def test_variants_run_on_the_kernels_they_concern():
+    assert kv.concerns("shipped", "K3 dbl fq n=2097152 (setup step)")
+    assert kv.concerns("inline", "K7 horner_total fq Wn=22 c=12")
+    assert kv.concerns("k3_calls", "K3 madd fq2 n=2097150, generator broadcast (setup step)")
+    assert not kv.concerns("k3_calls", "K4 window_scan fq L=993 V=33792 over 16 x 32769 buckets")
+    assert not kv.concerns("occupancy", "K3 dbl fq n=2097152 (setup step)")
+    assert kv.concerns("sliced", "K7 horner_total fq2 Wn=22 c=12")
