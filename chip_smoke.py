@@ -45,15 +45,29 @@ Phases, in order; any failure exits non-zero:
    kernel path against the plain versions, and against the butterfly NTT
    plan on the card, with both plans' iNTT and NTT times and the int8
    product's;
-7. the setup path at the production domain: the chain circuit a == b^m
-   with m = 2^21 - 4 (domain 2^21, n_vars 2^21 - 2), built with the port's
-   ConstraintSystem, `groth16_setup` on the card with pinned toxic values
-   (its launch counts: K3's madd and dbl > 0; one mid-ladder dbl and madd
-   call per group and pass size kept and replayed against the plain
+7. the setup path on the chain circuit a == b^m with m = 2^16 - 4 (domain
+   2^16), built with the port's ConstraintSystem: `groth16_setup` on the
+   card with pinned toxic values (K3's madd and dbl launched), a proof
+   under that key (its three-point G2 MSM runs K3 at n = 3), and the port's
+   pairing check: true for the proof, false with one coordinate changed;
+8. the keyless path at full width: the real keyless circuit
+   (`KeylessConfig()`: 1,377,553 wires, 1,406,751 constraints, domain 2^21)
+   from the port's `build_keyless_circuit`, `r1cs_from_cs`, `groth16_setup` on the
+   card with pinned toxic values (its launch counts; one mid-ladder dbl and
+   madd call per group and pass size kept and replayed against the plain
    versions, and K3's share of the device ladders: launches x ms per
-   group), a proof
-   under that key, and the port's pairing check: true for the proof,
-   false with one coordinate changed.
+   group), prover construction (the distinct rows of each point table after
+   its dedup), a test JWT from the port's seeded generator, its input
+   signals, the port's compiled witness engine (compile, evaluate, check
+   every constraint; the public wire is the public-inputs hash; the
+   witness's nonzero and bit-valued shares), one warm-up proof whose five
+   MSMs are each held against a double-and-add over K3's complete mixed add
+   (as affine points), three timed proofs with per-phase CUDA-event times,
+   every proof checked under the port's pairing against [public-inputs
+   hash] (a tampered proof must fail), the launch counts of one proof
+   (every prove-path kernel > 0), and the coefficient evaluation's time
+   inside the h scalars (also taken on the synthetic key in phase 6). Each
+   step's seconds are logged.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -689,6 +703,13 @@ def small_proof(dev) -> None:
     check(equal, "the GPU proof differs from the CPU proof")
 
 
+def log_eval_ab(label: str, prover, w) -> None:
+    """The coefficient evaluation's share of the h scalars, CUDA events."""
+    _, ab_ms = cuda_ms(lambda: prover._eval_ab(w), reps=3)
+    _, h_ms = cuda_ms(lambda: prover._h_scalars(w), reps=3)
+    log(f"{label}: eval_ab {ab_ms:.3f} ms of h scalars {h_ms:.3f} ms ({prover.pk.n_coefs} coefficients)")
+
+
 def ntt_plans(prover, w, dev) -> None:
     """The full-width h scalars under the matmul plan (the prover's) and the
     butterfly plan on the card: equal; each plan's iNTT and NTT ms on the
@@ -785,6 +806,7 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     equal = torch.equal(got, want)
     log(f"full width: h scalars kernel path == plain path: {equal}")
     check(equal, "h scalars differ between the kernel path and the plain path")
+    log_eval_ab("full width", prover, w)
     ntt_plans(prover, w, dev)
 
 
@@ -810,34 +832,12 @@ def chain_circuit(domain_pow: int):
     return cs, w, a
 
 
-def setup_path(dev, counts_out: dict, records: dict, domain_pow: int = 21) -> None:
-    import torch
+def k3_ladder_checks(calls: dict, seen: dict, records: dict, device_s: float) -> None:
+    """Each captured setup ladder call of K3 (dbl, and madd with the
+    generator broadcast) through the kernel and its plain version, and K3's
+    share of the device ladders: launches x ms per kernel and group."""
+    from keyless_zk_tpu_torch.ops import cuda_curve
 
-    from keyless_zk_tpu_torch.circuits import groth16_setup, r1cs_from_cs
-    from keyless_zk_tpu_torch.groth16 import Groth16Prover, verify_groth16
-    from keyless_zk_tpu_torch.ops import _build, cuda_curve
-
-    t0 = time.perf_counter()
-    cs, w, a = chain_circuit(domain_pow)
-    check(cs.check_witness(w) is None, "the chain circuit's witness violates a constraint")
-    r1cs = r1cs_from_cs(cs)
-    log(f"setup path: chain circuit built in {time.perf_counter() - t0:.1f} s "
-        f"({r1cs.n_constraints} constraints, {r1cs.n_wires} wires)")
-
-    calls: dict = {}
-    seen: dict = {}
-    _build.reset_launch_counts()
-    with capture_calls(cuda_curve, ("curve_dbl", "curve_madd"), calls, at=100, seen=seen):
-        t0 = time.perf_counter()
-        res = groth16_setup(r1cs, toxic=TOXIC, device=dev)
-        torch.cuda.synchronize()
-    counts_out.update(_build.launch_counts())
-    log(f"setup path: groth16_setup {time.perf_counter() - t0:.1f} s (host {res.seconds['host']:.1f} s, "
-        f"device ladders {res.seconds['device']:.1f} s), domain {res.pk.domain_size}")
-    log(f"launch counts (setup path): {json.dumps(counts_out)}")
-    for name, _, _, path in KERNELS:
-        if path == "setup":
-            check(counts_out.get(name, 0) > 0, f"kernel {name} was not launched by the setup path")
     for name in ("curve_dbl", "curve_madd"):
         for tag in ("fq", "fq2"):
             check(any(sig[0] == name and sig[-1] == tag for sig in calls), f"no setup call of {name} ({tag}) captured")
@@ -855,28 +855,214 @@ def setup_path(dev, counts_out: dict, records: dict, domain_pow: int = 21) -> No
         k3_seconds[f"{name} {tag}"] = k3_seconds.get(f"{name} {tag}", 0.0) + seen[sig] * ms / 1e3
         log(f"  {seen[sig]} launches of this signature: {seen[sig] * ms / 1e3:.3f} s")
     k3_total = sum(k3_seconds.values())
-    log(f"setup path: K3 in the device ladders (s, launches x ms): "
-        f"{json.dumps({k: round(v, 3) for k, v in k3_seconds.items()})}, {k3_total:.2f} s of "
-        f"{res.seconds['device']:.2f} s, the rest {res.seconds['device'] - k3_total:.2f} s")
-    del calls
-    torch.cuda.empty_cache()
+    log(f"  K3 in the device ladders (s, launches x ms): {json.dumps({k: round(v, 3) for k, v in k3_seconds.items()})}, "
+        f"{k3_total:.2f} s of {device_s:.2f} s, the rest {device_s - k3_total:.2f} s")
+
+
+def verify_checked(vk, public: list, proof, label: str, tamper: bool = False) -> None:
+    """The port's pairing check of a proof: it must verify, and with
+    `tamper` the proof with one coordinate changed must not."""
+    from keyless_zk_tpu_torch.groth16 import verify_groth16
+
+    t0 = time.perf_counter()
+    ok = verify_groth16(vk, public, proof.to_json_dict())
+    note = f"{label}: pairing check {time.perf_counter() - t0:.1f} s, verifies {ok}"
+    if tamper:
+        tampered = proof.to_json_dict()
+        tampered["pi_c"][0] = str(int(tampered["pi_c"][0]) + 1)
+        bad = verify_groth16(vk, public, tampered)
+        note += f", tampered verifies {bad}"
+        check(not bad, f"{label}: a tampered proof verifies")
+    log(note)
+    check(ok, f"{label}: the proof does not verify")
+
+
+def setup_path(dev, domain_pow: int = 16) -> None:
+    import torch
+
+    from keyless_zk_tpu_torch.circuits import groth16_setup, r1cs_from_cs
+    from keyless_zk_tpu_torch.groth16 import Groth16Prover
+    from keyless_zk_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    cs, w, a = chain_circuit(domain_pow)
+    check(cs.check_witness(w) is None, "the chain circuit's witness violates a constraint")
+    r1cs = r1cs_from_cs(cs)
+    log(f"setup path: chain circuit built in {time.perf_counter() - t0:.1f} s "
+        f"({r1cs.n_constraints} constraints, {r1cs.n_wires} wires)")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = groth16_setup(r1cs, toxic=TOXIC, device=dev)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    log(f"setup path: groth16_setup {time.perf_counter() - t0:.1f} s (host {res.seconds['host']:.1f} s, "
+        f"device ladders {res.seconds['device']:.1f} s), domain {res.pk.domain_size}, "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    for name, _, _, path in KERNELS:
+        if path == "setup":
+            check(counts.get(name, 0) > 0, f"kernel {name} was not launched by the chain setup")
 
     t0 = time.perf_counter()
     prover = Groth16Prover(res.pk, dev)
     witness = cs.witness_np(w)
     t1 = time.perf_counter()
     proof = prover.prove(witness, r=R_FIXED, s=S_FIXED)
-    t2 = time.perf_counter()
-    ok = verify_groth16(res.vk, [w[a]], proof.to_json_dict())
-    t3 = time.perf_counter()
-    tampered = proof.to_json_dict()
-    tampered["pi_c"][0] = str(int(tampered["pi_c"][0]) + 1)
-    bad = verify_groth16(res.vk, [w[a]], tampered)
-    log(f"setup path: prover construction {t1 - t0:.1f} s, proof {1e3 * (t2 - t1):.1f} ms "
-        f"({type(prover.plan).__name__}), pairing check {t3 - t2:.1f} s: verifies {ok}, tampered verifies {bad}")
+    log(f"setup path: prover construction {t1 - t0:.1f} s, proof {1e3 * (time.perf_counter() - t1):.1f} ms "
+        f"({type(prover.plan).__name__})")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
-    check(ok, "the proof under the card's setup does not verify")
-    check(not bad, "a tampered proof verifies")
+    verify_checked(res.vk, [w[a]], proof, "setup path", tamper=True)
+
+
+# ---- the keyless path ------------------------------------------------------------
+
+KEYLESS_WIRES, KEYLESS_CONSTRAINTS = 1_377_553, 1_406_751  # tests/test_full_scale_circuit.py
+
+
+def msm_against_double_and_add(prover, w) -> None:
+    """Each of the proof's five MSMs (the merged witness scalars, and the
+    h scalars of the last proof) against a double-and-add over K3's
+    complete mixed add, which takes P == Q: equal as affine points."""
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE
+    from keyless_zk_tpu_torch.groth16.prover import _SPARSE_C
+    from keyless_zk_tpu_torch.ops.msm import _msm_small, msm
+
+    tables = {
+        "a": (prover.points_a, prover._merge_a, G1_CURVE, w),
+        "b1": (prover.points_b1, prover._merge_b1, G1_CURVE, w),
+        "b2": (prover.points_b2, prover._merge_b2, G2_CURVE, w),
+        "c": (prover.points_c, prover._merge_c, G1_CURVE, w),
+        "h": (prover.points_h, prover._merge_h, G1_CURVE, prover.last_h),
+    }
+    for name, (points, merge, curve, scalars) in tables.items():
+        sc = prover._merge_scalars(scalars, merge)
+        kw = {"c": _SPARSE_C} if name != "h" else {}  # the prover's windows
+        t0 = time.perf_counter()
+        got = curve.decode_jacobian(msm(*points, sc, curve=curve, **kw))
+        t1 = time.perf_counter()
+        want = curve.decode_jacobian(_msm_small(*points, sc, curve=curve))
+        t2 = time.perf_counter()
+        equal = got == want
+        log(f"keyless path: msm_{name} ({sc.shape[0]} rows) == K3 double-and-add: {equal} "
+            f"(msm {t1 - t0:.2f} s, double-and-add {t2 - t1:.2f} s)")
+        check(equal, f"keyless msm_{name} differs from the double-and-add over the complete mixed add")
+
+
+def keyless_path(dev, setup_counts: dict, records: dict) -> None:
+    import numpy as np
+    import torch
+
+    from keyless_zk_tpu_torch.circuits import groth16_setup, r1cs_from_cs
+    from keyless_zk_tpu_torch.circuits.keyless_circuit import (
+        KeylessConfig,
+        build_keyless_circuit,
+        to_circuit_config,
+        witness_kwargs,
+    )
+    from keyless_zk_tpu_torch.circuits.witness_engine import CompiledWitnessProgram
+    from keyless_zk_tpu_torch.groth16 import Groth16Prover
+    from keyless_zk_tpu_torch.input_processing.input_signals import derive_circuit_input_signals
+    from keyless_zk_tpu_torch.input_processing.testjwt import make_test_jwt
+    from keyless_zk_tpu_torch.ops import _build, cuda_curve
+
+    cfg = KeylessConfig()
+    t0 = time.perf_counter()
+    cs = build_keyless_circuit(cfg)
+    log(f"keyless path: circuit built in {time.perf_counter() - t0:.1f} s ({cs.n_wires} wires, "
+        f"{len(cs.constraints)} constraints, {len(cs.ops)} witness ops)")
+    check((cs.n_wires, len(cs.constraints)) == (KEYLESS_WIRES, KEYLESS_CONSTRAINTS),
+          "the keyless circuit's wire or constraint count changed")
+    t0 = time.perf_counter()
+    r1cs = r1cs_from_cs(cs)
+    log(f"keyless path: r1cs_from_cs {time.perf_counter() - t0:.1f} s (nonzero terms A {sum(map(len, r1cs.A))}, "
+        f"B {sum(map(len, r1cs.B))}, C {sum(map(len, r1cs.C))})")
+
+    calls: dict = {}
+    seen: dict = {}
+    _build.reset_launch_counts()
+    with capture_calls(cuda_curve, ("curve_dbl", "curve_madd"), calls, at=100, seen=seen):
+        t0 = time.perf_counter()
+        res = groth16_setup(r1cs, toxic=TOXIC, device=dev)
+        torch.cuda.synchronize()
+    setup_counts.update(_build.launch_counts())
+    log(f"keyless path: groth16_setup {time.perf_counter() - t0:.1f} s (host {res.seconds['host']:.1f} s, "
+        f"device ladders {res.seconds['device']:.1f} s), domain {res.pk.domain_size}, "
+        f"{res.pk.n_coefs} coefficients")
+    log(f"launch counts (keyless setup): {json.dumps(setup_counts)}")
+    for name, _, _, path in KERNELS:
+        if path == "setup":
+            check(setup_counts.get(name, 0) > 0, f"kernel {name} was not launched by the keyless setup")
+    del r1cs
+    k3_ladder_checks(calls, seen, records, res.seconds["device"])
+    del calls
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    prover = Groth16Prover(res.pk, dev)
+    torch.cuda.synchronize()
+    rows = {name: (getattr(res.pk, "points_" + name).inf.shape[0], getattr(prover, "points_" + name)[0].shape[0])
+            for name in ("a", "b1", "b2", "c", "h")}
+    log(f"keyless path: prover construction {time.perf_counter() - t0:.1f} s, NTT plan {type(prover.plan).__name__}; "
+        f"point table rows -> distinct rows after the dedup: {json.dumps(rows)}")
+
+    t0 = time.perf_counter()
+    tj = make_test_jwt(seed=2026)
+    t1 = time.perf_counter()
+    signals, public_hash = derive_circuit_input_signals(to_circuit_config(cfg), tj.vi)
+    kw = witness_kwargs(signals)
+    t2 = time.perf_counter()
+    prog = CompiledWitnessProgram(cs)
+    t3 = time.perf_counter()
+    wires = prog.compute_witness(**kw)
+    t4 = time.perf_counter()
+    bad = prog.check_witness(wires)
+    t5 = time.perf_counter()
+    witness = prog.witness_limbs(wires)
+    nonzero = float((wires != 0).any(axis=1).mean())
+    bits = float(((wires[:, 1:] == 0).all(axis=1) & (wires[:, 0] <= 1)).mean())
+    log(f"keyless path: test JWT {t1 - t0:.2f} s, input signals {t2 - t1:.2f} s; witness engine: compile "
+        f"{t3 - t2:.1f} s, compute_witness {t4 - t3:.2f} s, check_witness {t5 - t4:.1f} s -> "
+        f"{'satisfied' if bad is None else f'constraint {bad} violated'}; nonzero {100 * nonzero:.1f}%, "
+        f"bit-valued {100 * bits:.1f}% of {wires.shape[0]} wires")
+    check(bad is None, f"the keyless witness violates constraint {bad}")
+    public = prog.witness_ints(wires[1:2])[0]
+    check(public == public_hash, "the keyless witness's public wire is not the public-inputs hash")
+    del cs, prog, wires
+
+    proof, wall = timed_proof(prover, witness, R_FIXED, S_FIXED)
+    log(f"keyless proof warm-up: wall {wall:.1f} ms")
+    log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
+    verify_checked(res.vk, [public_hash], proof, "keyless proof warm-up", tamper=True)
+    w = torch.from_numpy(witness.astype(np.int32)).to(dev)
+    msm_against_double_and_add(prover, w)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    walls = []
+    prove_counts: dict = {}
+    for i in range(3):
+        if i == 0:
+            _build.reset_launch_counts()
+        proof, wall = timed_proof(prover, witness, R_FIXED + i, S_FIXED + i)
+        if i == 0:
+            prove_counts = _build.launch_counts()
+        walls.append(wall)
+        log(f"keyless proof {i + 1}: wall {wall:.1f} ms")
+        log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
+        verify_checked(res.vk, [public_hash], proof, f"keyless proof {i + 1}")
+    log(f"keyless path: proof wall ms {[round(ms, 1) for ms in walls]}, median {sorted(walls)[1]:.1f}, "
+        f"peak device memory over the timed proofs {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"launch counts (keyless prove path, one proof): {json.dumps(prove_counts)}")
+    for name, _, _, path in KERNELS:
+        if path == "prove":
+            check(prove_counts.get(name, 0) > 0, f"kernel {name} was not launched by the keyless proof")
+    log_eval_ab("keyless path", prover, w)
+
+
+def timed_proof(prover, witness, r, s):
+    """One proof and its host wall ms (it ends in the decode's readbacks)."""
+    t0 = time.perf_counter()
+    proof = prover.prove(witness, r=r, s=s)
+    return proof, (time.perf_counter() - t0) * 1e3
 
 
 PTXAS_KERNELS = ("madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel", "merge_tile_kernel",
@@ -921,7 +1107,9 @@ def main() -> int:
         small_proof(dev)
         full_width(dev, counts["prove"], records)
         torch.cuda.empty_cache()
-        setup_path(dev, counts["setup"], records)
+        setup_path(dev)
+        torch.cuda.empty_cache()
+        keyless_path(dev, counts["setup"], records)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

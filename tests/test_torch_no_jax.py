@@ -1,9 +1,13 @@
 """The port runs without JAX: fresh interpreters whose import system refuses
 `jax`, `jaxlib` and the JAX package import every module of
 keyless_zk_tpu_torch, prove on the CPU under a tiny synthetic key (checked
-against its discrete-log oracle), and run setup -> prove -> verify on a tiny
-chain circuit (the setup through K3's plain versions). `chip_smoke.py`
-imports nothing of JAX either, at its top level or inside its functions."""
+against its discrete-log oracle), run setup -> prove -> verify on a tiny
+chain circuit (the setup through K3's plain versions), and run the port's
+compiled witness engine: on the gadget circuit of keyless_gadget_circuit.py
+(equal to the Python witness) and on an in-circuit RSA-2048 PKCS#1 check of
+a JWT from the port's seeded generator (satisfied; violated with the
+signature changed). `chip_smoke.py` imports nothing of JAX either, at its
+top level or inside its functions."""
 
 import ast
 import os
@@ -90,6 +94,49 @@ assert verify_groth16(res.vk, [w[a]], proof)
 assert not verify_groth16(res.vk, [w[a] + 1], proof)
 ''' + DONE
 
+WITNESS = REFUSE + r'''
+import hashlib
+import sys
+
+sys.path.insert(0, "tests")
+import keyless_gadget_circuit as kg
+from keyless_zk_tpu_torch.circuits import ConstraintSystem
+from keyless_zk_tpu_torch.circuits.rsa_gadget import rsa_pkcs1_verify
+from keyless_zk_tpu_torch.circuits.witness_engine import CompiledWitnessProgram
+from keyless_zk_tpu_torch.hashes import poseidon_hash
+from keyless_zk_tpu_torch.input_processing.testjwt import make_test_jwt
+
+cs, _ = kg.build("keyless_zk_tpu_torch", "engine")
+kw = kg.inputs(poseidon_hash, "engine")
+prog = CompiledWitnessProgram(cs)
+wires = prog.compute_witness(**kw)
+assert prog.witness_ints(wires) == cs.compute_witness(**kw)
+assert prog.check_witness(wires) is None
+
+
+def limbs(v, bits, k):
+    return [(v >> (bits * i)) & ((1 << bits) - 1) for i in range(k)]
+
+
+tj = make_test_jwt(seed=6)
+unsigned = tj.vi.jwt_parts.unsigned_undecoded().encode()
+cs = ConstraintSystem()
+ws = {}
+for name, k in (("sig", 32), ("mod", 32), ("hashed", 4)):
+    ws[name] = cs.new_wires(k)
+    cs.set_input_hint(ws[name], name)
+    for w in ws[name]:
+        cs.to_bits(cs.lc(w), 64)
+rsa_pkcs1_verify(cs, ws["sig"], ws["mod"], [cs.lc(h) for h in ws["hashed"]])
+prog = CompiledWitnessProgram(cs)
+sig = tj.vi.jwt_parts.signature_int()
+kw = {"sig": limbs(sig, 64, 32), "mod": limbs(tj.rsa_key.n, 64, 32),
+      "hashed": limbs(int.from_bytes(hashlib.sha256(unsigned).digest(), "big"), 64, 4)}
+assert prog.check_witness(prog.compute_witness(**kw)) is None
+kw["sig"] = limbs(sig ^ 1, 64, 32)
+assert prog.check_witness(prog.compute_witness(**kw)) is not None
+''' + DONE
+
 IMPORT_CHIP_SMOKE = REFUSE + r'''
 import chip_smoke
 
@@ -110,6 +157,10 @@ def test_port_proves_without_jax():
 
 def test_port_sets_up_proves_and_verifies_without_jax():
     _run(SETUP)
+
+
+def test_port_witness_engine_runs_without_jax():
+    _run(WITNESS)
 
 
 def test_chip_smoke_imports_no_jax():
