@@ -50,24 +50,39 @@ Phases, in order; any failure exits non-zero:
    card with pinned toxic values (K3's madd and dbl launched), a proof
    under that key (its three-point G2 MSM runs K3 at n = 3), and the port's
    pairing check: true for the proof, false with one coordinate changed;
-8. the keyless path at full width: the real keyless circuit
+   then the prover CLI: the key's zkey, witness and vk written under
+   build/chip_smoke/cli, `python -m keyless_zk_tpu_torch.groth16.cli prove`
+   in a subprocess (exit 0, "verified: true") and `verify` on its output;
+8. the service's path at full width. Procure: the real keyless circuit
    (`KeylessConfig()`: 1,377,553 wires, 1,406,751 constraints, domain 2^21)
-   from the port's `build_keyless_circuit`, `r1cs_from_cs`, `groth16_setup` on the
-   card with pinned toxic values (its launch counts; one mid-ladder dbl and
+   from the port's `build_keyless_circuit`, then `setup_tool.procure` into
+   a cold store under build/chip_smoke/setups: `r1cs_from_cs`, `save_r1cs`,
+   `groth16_setup` on the card (its launch counts; one mid-ladder dbl and
    madd call per group and pass size kept and replayed against the plain
-   versions, and K3's share of the device ladders: launches x ms per
-   group), prover construction (the distinct rows of each point table after
-   its dedup), a test JWT from the port's seeded generator, its input
-   signals, the port's compiled witness engine (compile, evaluate, check
-   every constraint; the public wire is the public-inputs hash; the
-   witness's nonzero and bit-valued shares), one warm-up proof whose five
-   MSMs are each held against a double-and-add over K3's complete mixed add
-   (as affine points), three timed proofs with per-phase CUDA-event times,
-   every proof checked under the port's pairing against [public-inputs
-   hash] (a tampered proof must fail), the launch counts of one proof
-   (every prove-path kernel > 0), and the coefficient evaluation's time
-   inside the h scalars (also taken on the synthetic key in phase 6). Each
-   step's seconds are logged.
+   versions, and K3's share of the device ladders), `save_zkey`, the vk
+   and circuit config, each file's bytes. The compiled witness engine
+   (compile, saved beside the zkey as `witness_program.npz`) on a test JWT
+   from the port's seeded generator: every constraint checked, the public
+   wire equal to the public-inputs hash, the witness's nonzero and
+   bit-valued shares. Start: a `ProverServiceState` started warm from the
+   store (`init_prover_from_native_setup(persist=True)`: the saved witness
+   program, the zkey, checked equal to the setup's key array by array and
+   vk point by vk point before the prover is built, the prover), the
+   native pairing required. Prove through the service's program and prover: one
+   warm-up proof whose five MSMs are each held against a double-and-add
+   over K3's complete mixed add (as affine points), three timed proofs
+   with per-phase CUDA-event times, every proof checked under the pairing
+   against [public-inputs hash] (a tampered proof must fail), the launch
+   counts of one proof, the coefficient evaluation's time. Serve: the HTTP
+   service and its metrics server on 127.0.0.1 (ephemeral ports, threads,
+   no JWK fetcher), three POST /v0/prove one after another and two at once
+   with JWTs of five seeds, each 200 with a proof that verifies under
+   verification_key.json against the response's public-inputs hash and a
+   training-wheels signature that verifies over the BCS message rebuilt
+   from the response; the launch counts of one request (every prove-path
+   kernel > 0); a tampered JWT answered 400; /healthcheck 200; the nine
+   prove phases in the metrics text. Each step's seconds are logged, and
+   each request's wall ms, nine phase ms and the prover's phase ms.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -77,10 +92,12 @@ package beside it, the script prints no result and exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 KERNELS = [
     # (wrapper = launch counter, source, the TPU kernel it replaces, the path
@@ -911,6 +928,54 @@ def setup_path(dev, domain_pow: int = 16) -> None:
         f"({type(prover.plan).__name__})")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
     verify_checked(res.vk, [w[a]], proof, "setup path", tamper=True)
+    cli_checks(res, w, dev)
+
+
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "cli"
+
+
+def cli_checks(res, w: list, dev) -> None:
+    """The chain key's zkey, witness and vk written to disk and proved by
+    `python -m keyless_zk_tpu_torch.groth16.cli prove` in a subprocess
+    (exit 0, "verified: true"); its proof through the CLI's `verify`."""
+    import io
+    import shutil
+
+    from keyless_zk_tpu_torch.fields import bn254
+    from keyless_zk_tpu_torch.groth16 import cli
+    from keyless_zk_tpu_torch.groth16.wtns import save_wtns, witness_from_ints
+    from keyless_zk_tpu_torch.groth16.zkey import save_zkey
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    files = {name: str(CLI_DIR / name) for name in ("chain.zkey", "chain.wtns", "chain_vk.json", "proof.json",
+                                                     "public.json")}
+    t0 = time.perf_counter()
+    save_zkey(files["chain.zkey"], res.pk)
+    save_wtns(files["chain.wtns"], witness_from_ints(w, bn254.R_SCALAR))
+    with open(files["chain_vk.json"], "w") as f:
+        json.dump(res.vk, f)
+    t1 = time.perf_counter()
+    cmd = [sys.executable, "-m", "keyless_zk_tpu_torch.groth16.cli", "prove", "--zkey", files["chain.zkey"],
+           "--wtns", files["chain.wtns"], "--vk", files["chain_vk.json"], "--device", str(dev)]
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+    except subprocess.TimeoutExpired:
+        raise Failed("the prove CLI did not finish within 300 s") from None
+    t2 = time.perf_counter()
+    log(f"cli: files written in {t1 - t0:.1f} s; prove --zkey --wtns --vk: exit {out.returncode} in {t2 - t1:.1f} s, "
+        f"stderr {out.stderr.strip().splitlines()[-2:]}")
+    check(out.returncode == 0 and "verified: true" in out.stderr, f"the prove CLI failed: {out.stderr[-2000:]}")
+    proof_line, public_line = out.stdout.splitlines()[:2]
+    for name, line in (("proof.json", proof_line), ("public.json", public_line)):
+        with open(files[name], "w") as f:
+            f.write(line)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["verify", "--vk", files["chain_vk.json"], "--proof", files["proof.json"],
+                       "--public", files["public.json"]])
+    log(f"cli: verify on its output: exit {rc}, {buf.getvalue().strip()}")
+    check(rc == 0 and buf.getvalue().strip() == "verified: true", "the CLI's verify refused the CLI's proof")
 
 
 # ---- the keyless path ------------------------------------------------------------
@@ -947,22 +1012,67 @@ def msm_against_double_and_add(prover, w) -> None:
         check(equal, f"keyless msm_{name} differs from the double-and-add over the complete mixed add")
 
 
-def keyless_path(dev, setup_counts: dict, records: dict) -> None:
+SETUP_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke" / "setups"
+SETUP_FILES = ("main.r1cs", "prover_key.zkey", "verification_key.json", "circuit_config.yml", ".complete")
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, seconds: dict, keep: dict | None = None):
+    """Wrap module.<name> for each name: its seconds go into `seconds`, and
+    with `keep` its result into keep[name]."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, real):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            if keep is not None:
+                keep[name] = out
+            return out
+        return call
+
+    try:
+        for name, real in saved.items():
+            setattr(module, name, wrap(name, real))
+        yield
+    finally:
+        for name, real in saved.items():
+            setattr(module, name, real)
+
+
+def key_differences(a, b) -> list:
+    """The fields where two proving keys differ: tables array by array,
+    vk points point by point."""
+    import dataclasses
+
     import numpy as np
+
+    diff = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name.startswith("points_"):
+            same = all(np.array_equal(getattr(x, part), getattr(y, part)) for part in ("x", "y", "inf"))
+        elif isinstance(x, np.ndarray):
+            same = np.array_equal(x, y)
+        else:
+            same = x == y
+        if not same:
+            diff.append(f.name)
+    return diff
+
+
+def keyless_procure(dev, setup_counts: dict, records: dict):
+    """The real keyless circuit, then `setup_tool.procure` into a cold store
+    under build/: the circuit's R1CS, the setup on the card, and its files.
+    Returns (cs, setup directory, the setup's SetupResult)."""
+    import shutil
+
     import torch
 
-    from keyless_zk_tpu_torch.circuits import groth16_setup, r1cs_from_cs
-    from keyless_zk_tpu_torch.circuits.keyless_circuit import (
-        KeylessConfig,
-        build_keyless_circuit,
-        to_circuit_config,
-        witness_kwargs,
-    )
-    from keyless_zk_tpu_torch.circuits.witness_engine import CompiledWitnessProgram
-    from keyless_zk_tpu_torch.groth16 import Groth16Prover
-    from keyless_zk_tpu_torch.input_processing.input_signals import derive_circuit_input_signals
-    from keyless_zk_tpu_torch.input_processing.testjwt import make_test_jwt
+    from keyless_zk_tpu_torch.circuits.keyless_circuit import KeylessConfig, build_keyless_circuit
     from keyless_zk_tpu_torch.ops import _build, cuda_curve
+    from keyless_zk_tpu_torch.tooling import setup_tool
 
     cfg = KeylessConfig()
     t0 = time.perf_counter()
@@ -971,67 +1081,149 @@ def keyless_path(dev, setup_counts: dict, records: dict) -> None:
         f"{len(cs.constraints)} constraints, {len(cs.ops)} witness ops)")
     check((cs.n_wires, len(cs.constraints)) == (KEYLESS_WIRES, KEYLESS_CONSTRAINTS),
           "the keyless circuit's wire or constraint count changed")
-    t0 = time.perf_counter()
-    r1cs = r1cs_from_cs(cs)
-    log(f"keyless path: r1cs_from_cs {time.perf_counter() - t0:.1f} s (nonzero terms A {sum(map(len, r1cs.A))}, "
-        f"B {sum(map(len, r1cs.B))}, C {sum(map(len, r1cs.C))})")
 
+    shutil.rmtree(SETUP_ROOT, ignore_errors=True)
     calls: dict = {}
     seen: dict = {}
+    seconds: dict = {}
+    kept: dict = {}
     _build.reset_launch_counts()
-    with capture_calls(cuda_curve, ("curve_dbl", "curve_madd"), calls, at=100, seen=seen):
+    with capture_calls(cuda_curve, ("curve_dbl", "curve_madd"), calls, at=100, seen=seen), \
+            timed_calls(setup_tool, ("r1cs_from_cs", "save_r1cs", "groth16_setup", "save_zkey"), seconds, kept):
         t0 = time.perf_counter()
-        res = groth16_setup(r1cs, toxic=TOXIC, device=dev)
+        setup_dir = setup_tool.procure(cfg, root=str(SETUP_ROOT), cs=cs, device=dev)
         torch.cuda.synchronize()
+    procure_s = time.perf_counter() - t0
     setup_counts.update(_build.launch_counts())
-    log(f"keyless path: groth16_setup {time.perf_counter() - t0:.1f} s (host {res.seconds['host']:.1f} s, "
-        f"device ladders {res.seconds['device']:.1f} s), domain {res.pk.domain_size}, "
-        f"{res.pk.n_coefs} coefficients")
+    res, r1cs = kept["groth16_setup"], kept.pop("r1cs_from_cs")
+    log(f"keyless path: r1cs_from_cs {seconds['r1cs_from_cs']:.1f} s (nonzero terms A {sum(map(len, r1cs.A))}, "
+        f"B {sum(map(len, r1cs.B))}, C {sum(map(len, r1cs.C))})")
+    del r1cs
+    sizes = {name: Path(setup_dir, name).stat().st_size for name in SETUP_FILES}
+    log(f"keyless path: procure {procure_s:.1f} s -> {setup_dir}: save_r1cs {seconds['save_r1cs']:.1f} s, "
+        f"groth16_setup {seconds['groth16_setup']:.1f} s (host {res.seconds['host']:.1f} s, device ladders "
+        f"{res.seconds['device']:.1f} s), save_zkey {seconds['save_zkey']:.1f} s; domain {res.pk.domain_size}, "
+        f"{res.pk.n_coefs} coefficients; file bytes {json.dumps(sizes)}")
+    check(Path(setup_dir).parent == SETUP_ROOT and (SETUP_ROOT / "default").resolve() == Path(setup_dir).resolve(),
+          "procure did not install the setup as the store's default")
     log(f"launch counts (keyless setup): {json.dumps(setup_counts)}")
     for name, _, _, path in KERNELS:
         if path == "setup":
             check(setup_counts.get(name, 0) > 0, f"kernel {name} was not launched by the keyless setup")
-    del r1cs
     k3_ladder_checks(calls, seen, records, res.seconds["device"])
     del calls
     torch.cuda.empty_cache()
+    return cs, setup_dir, res
 
-    t0 = time.perf_counter()
-    prover = Groth16Prover(res.pk, dev)
-    torch.cuda.synchronize()
-    rows = {name: (getattr(res.pk, "points_" + name).inf.shape[0], getattr(prover, "points_" + name)[0].shape[0])
-            for name in ("a", "b1", "b2", "c", "h")}
-    log(f"keyless path: prover construction {time.perf_counter() - t0:.1f} s, NTT plan {type(prover.plan).__name__}; "
-        f"point table rows -> distinct rows after the dedup: {json.dumps(rows)}")
+
+def keyless_witness(cs, setup_dir: str):
+    """The compiled witness engine of the circuit, saved beside the zkey as
+    the service's cold start does, and the test JWT's witness checked
+    against every constraint. Returns (the JWT's compute_witness keyword
+    arguments, its wires, its public-inputs hash)."""
+    from keyless_zk_tpu_torch.circuits.keyless_circuit import KeylessConfig, to_circuit_config, witness_kwargs
+    from keyless_zk_tpu_torch.circuits.witness_engine import CompiledWitnessProgram
+    from keyless_zk_tpu_torch.input_processing.input_signals import derive_circuit_input_signals
+    from keyless_zk_tpu_torch.input_processing.testjwt import make_test_jwt
 
     t0 = time.perf_counter()
     tj = make_test_jwt(seed=2026)
     t1 = time.perf_counter()
-    signals, public_hash = derive_circuit_input_signals(to_circuit_config(cfg), tj.vi)
+    signals, public_hash = derive_circuit_input_signals(to_circuit_config(KeylessConfig()), tj.vi)
     kw = witness_kwargs(signals)
     t2 = time.perf_counter()
     prog = CompiledWitnessProgram(cs)
     t3 = time.perf_counter()
-    wires = prog.compute_witness(**kw)
+    prog.save(str(Path(setup_dir, "witness_program.npz")))
     t4 = time.perf_counter()
-    bad = prog.check_witness(wires)
+    wires = prog.compute_witness(**kw)
     t5 = time.perf_counter()
-    witness = prog.witness_limbs(wires)
+    bad = prog.check_witness(wires)
+    t6 = time.perf_counter()
     nonzero = float((wires != 0).any(axis=1).mean())
     bits = float(((wires[:, 1:] == 0).all(axis=1) & (wires[:, 0] <= 1)).mean())
     log(f"keyless path: test JWT {t1 - t0:.2f} s, input signals {t2 - t1:.2f} s; witness engine: compile "
-        f"{t3 - t2:.1f} s, compute_witness {t4 - t3:.2f} s, check_witness {t5 - t4:.1f} s -> "
+        f"{t3 - t2:.1f} s, save {t4 - t3:.1f} s ({Path(setup_dir, 'witness_program.npz').stat().st_size} bytes), "
+        f"compute_witness {t5 - t4:.2f} s, check_witness {t6 - t5:.1f} s -> "
         f"{'satisfied' if bad is None else f'constraint {bad} violated'}; nonzero {100 * nonzero:.1f}%, "
         f"bit-valued {100 * bits:.1f}% of {wires.shape[0]} wires")
     check(bad is None, f"the keyless witness violates constraint {bad}")
-    public = prog.witness_ints(wires[1:2])[0]
-    check(public == public_hash, "the keyless witness's public wire is not the public-inputs hash")
-    del cs, prog, wires
+    check(prog.witness_ints(wires[1:2])[0] == public_hash,
+          "the keyless witness's public wire is not the public-inputs hash")
+    return kw, wires, public_hash
+
+
+def start_service(dev, setup_pk):
+    """A ProverServiceState warm-started from the store: the saved witness
+    program, the zkey (checked equal to the setup's key before the prover
+    is built), the prover; the native pairing."""
+    from keyless_zk_tpu_torch.circuits.keyless_circuit import KeylessConfig, to_circuit_config
+    from keyless_zk_tpu_torch.service import prover_state
+    from keyless_zk_tpu_torch.service.config import ProverServiceConfig
+    from keyless_zk_tpu_torch.service.jwk import JwkCache
+    from keyless_zk_tpu_torch.service.training_wheels import TrainingWheelsKeyPair
+
+    cfg = KeylessConfig()
+    config = ProverServiceConfig(resources_dir=str(SETUP_ROOT), port=0, metrics_port=0, require_native_pairing=True)
+    state = prover_state.ProverServiceState(
+        config=config,
+        circuit_config=to_circuit_config(cfg),
+        keyless_config=cfg,
+        tw_keypair=TrainingWheelsKeyPair.from_sk_hex(hashlib.sha256(b"chip_smoke training wheels").hexdigest()),
+        jwk_cache=JwkCache(),
+        device=dev,
+    )
+    real_load = prover_state.load_zkey
+
+    def load_and_compare(path):
+        pk = real_load(path)
+        diff = key_differences(pk, setup_pk)
+        log(f"service start: the loaded zkey equals the setup's key: {not diff}"
+            + (f" (differs in {diff})" if diff else ""))
+        check(not diff, f"the zkey loaded from the store differs from the setup's key in {diff}")
+        return pk
+
+    prover_state.load_zkey = load_and_compare
+    try:
+        t0 = time.perf_counter()
+        state.init_prover_from_native_setup(persist=True)
+        cold_s = time.perf_counter() - t0
+    finally:
+        prover_state.load_zkey = real_load
+    steps = {k: (round(v, 2) if isinstance(v, float) else v) for k, v in state.startup_s.items()}
+    log(f"service start: init_prover_from_native_setup(persist=True) {cold_s:.1f} s, steps (s) {json.dumps(steps)}, "
+        f"pairing backend {state.pairing_backend}, NTT plan {type(state.prover.plan).__name__}")
+    check(state.startup_s.get("warm") is True, "the service's start did not take the warm branch")
+    check(state.pairing_backend == "native", f"the service verifies with the {state.pairing_backend} pairing")
+    check(state.healthy() == (True, "ok"), "the service reports itself unhealthy")
+
+    rows = {name: (getattr(setup_pk, "points_" + name).inf.shape[0], getattr(state.prover, "points_" + name)[0].shape[0])
+            for name in ("a", "b1", "b2", "c", "h")}
+    log(f"service start: point table rows -> distinct rows after the dedup: {json.dumps(rows)}")
+    return state
+
+
+def keyless_proofs(dev, state, kw, wires_ref, public_hash) -> None:
+    """The proofs of the test JWT through the service's witness program and
+    prover: a warm-up (tampered copy refused), its five MSMs against K3's
+    double-and-add, three timed proofs, their launch counts."""
+    import numpy as np
+    import torch
+
+    from keyless_zk_tpu_torch.ops import _build
+
+    prover, prog = state.prover, state.witness_prog
+    t0 = time.perf_counter()
+    wires = prog.compute_witness(**kw)
+    log(f"keyless path: the service's witness program (reloaded): compute_witness {time.perf_counter() - t0:.2f} s, "
+        f"equal to the compiled program's: {np.array_equal(wires, wires_ref)}")
+    check(np.array_equal(wires, wires_ref), "the reloaded witness program computes another witness")
+    witness = prog.witness_limbs(wires)
 
     proof, wall = timed_proof(prover, witness, R_FIXED, S_FIXED)
     log(f"keyless proof warm-up: wall {wall:.1f} ms")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
-    verify_checked(res.vk, [public_hash], proof, "keyless proof warm-up", tamper=True)
+    verify_checked(state.vk, [public_hash], proof, "keyless proof warm-up", tamper=True)
     w = torch.from_numpy(witness.astype(np.int32)).to(dev)
     msm_against_double_and_add(prover, w)
     torch.cuda.empty_cache()
@@ -1048,7 +1240,7 @@ def keyless_path(dev, setup_counts: dict, records: dict) -> None:
         walls.append(wall)
         log(f"keyless proof {i + 1}: wall {wall:.1f} ms")
         log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
-        verify_checked(res.vk, [public_hash], proof, f"keyless proof {i + 1}")
+        verify_checked(state.vk, [public_hash], proof, f"keyless proof {i + 1}")
     log(f"keyless path: proof wall ms {[round(ms, 1) for ms in walls]}, median {sorted(walls)[1]:.1f}, "
         f"peak device memory over the timed proofs {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"launch counts (keyless prove path, one proof): {json.dumps(prove_counts)}")
@@ -1056,6 +1248,175 @@ def keyless_path(dev, setup_counts: dict, records: dict) -> None:
         if path == "prove":
             check(prove_counts.get(name, 0) > 0, f"kernel {name} was not launched by the keyless proof")
     log_eval_ab("keyless path", prover, w)
+
+
+# ---- the service path ------------------------------------------------------------
+
+SERVICE_SEEDS = (11, 12, 13, 14, 15)  # three sequential requests, then two at once
+
+
+def decode_response_proof(payload: dict) -> dict:
+    """A POST /v0/prove response's compressed points -> snarkjs proof JSON."""
+    from keyless_zk_tpu_torch.tooling.onchain_vk import decompress_g1, decompress_g2
+
+    a = decompress_g1(bytes(payload["proof"]["a"]))
+    b = decompress_g2(bytes(payload["proof"]["b"]))
+    c = decompress_g1(bytes(payload["proof"]["c"]))
+    return {
+        "pi_a": [str(a[0]), str(a[1]), "1"],
+        "pi_b": [[str(b[0][0]), str(b[0][1])], [str(b[1][0]), str(b[1][1])], ["1", "0"]],
+        "pi_c": [str(c[0]), str(c[1]), "1"],
+        "protocol": "groth16",
+    }
+
+
+def http_call(port: int, method: str, path: str, body: bytes = b"") -> tuple:
+    """(status, body bytes, wall ms) of one request to 127.0.0.1:port."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path, body=body or None, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    return resp.status, data, (time.perf_counter() - t0) * 1e3
+
+
+def check_prove_response(state, vk: dict, tj, status: int, data: bytes, label: str) -> None:
+    """A 200 whose proof verifies under `vk` against the response's own
+    public-inputs hash (equal to the one derived here from the JWT), and
+    whose training-wheels signature verifies under the service's key over
+    the BCS message rebuilt from the response alone."""
+    from keyless_zk_tpu_torch.groth16 import verify_groth16
+    from keyless_zk_tpu_torch.input_processing.public_inputs_hash import compute_public_inputs_hash
+    from keyless_zk_tpu_torch.service.bcs import GROTH16_PROOF_AND_STATEMENT_SEED, ephemeral_signature_from_bcs
+    from keyless_zk_tpu_torch.utils import ed25519
+
+    check(status == 200, f"{label}: POST /v0/prove answered {status}: {data[:300]!r}")
+    payload = json.loads(data)
+    pih_bytes = bytes.fromhex(payload["public_inputs_hash"])
+    pih = int.from_bytes(pih_bytes, "little")
+    check(pih == compute_public_inputs_hash(state.circuit_config, tj.vi, state.config.max_committed_epk_bytes),
+          f"{label}: the response's public-inputs hash is not the JWT's")
+    proof_ok = verify_groth16(vk, [pih], decode_response_proof(payload))
+    msg = (GROTH16_PROOF_AND_STATEMENT_SEED + bytes(payload["proof"]["a"]) + bytes(payload["proof"]["b"])
+           + bytes(payload["proof"]["c"]) + pih_bytes)
+    sig = ephemeral_signature_from_bcs(bytes.fromhex(payload["training_wheels_signature"]))
+    sig_ok = ed25519.verify(state.tw_keypair.pk, msg, sig)
+    log(f"  {label}: proof verifies {proof_ok}, training-wheels signature verifies {sig_ok}")
+    check(proof_ok, f"{label}: the response's proof does not verify")
+    check(sig_ok, f"{label}: the response's training-wheels signature does not verify")
+
+
+def serve_checks(state, setup_dir: str, prove_kernels: bool = True) -> None:
+    """The prover service over HTTP on 127.0.0.1 (ephemeral ports, server
+    threads): three POST /v0/prove one after another and two at once, each
+    200 with a proof and a training-wheels signature that verify; a
+    tampered JWT 400; /healthcheck 200; the metrics text with the nine
+    phases. Launch counts of one request (every prove-path kernel > 0 with
+    `prove_kernels`)."""
+    import threading
+
+    from keyless_zk_tpu_torch.input_processing.testjwt import make_test_jwt, prove_request
+    from keyless_zk_tpu_torch.ops import _build
+    from keyless_zk_tpu_torch.service.jwk import RsaJwk
+    from keyless_zk_tpu_torch.service.metrics import PROVE_PHASES
+    from keyless_zk_tpu_torch.service.server import start_metrics_server, start_prover_service
+
+    with open(Path(setup_dir, "verification_key.json")) as f:
+        vk = json.load(f)
+    t0 = time.perf_counter()
+    jwts = [make_test_jwt(seed=s, kid=f"test-kid-{s}") for s in SERVICE_SEEDS]
+    for tj in jwts:
+        state.jwk_cache.insert(tj.vi.jwt.payload.iss, RsaJwk(kid=tj.vi.jwt.header.kid, n=tj.rsa_key.n))
+    log(f"service: {len(jwts)} test JWTs and their keys in the JWK cache in {time.perf_counter() - t0:.1f} s")
+
+    srv = start_prover_service(state, 0, host="127.0.0.1")
+    metrics = start_metrics_server(0, host="127.0.0.1")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port, metrics_port = srv.server_address[1], metrics.server_address[1]
+    try:
+        status, data, _ = http_call(port, "GET", "/healthcheck")
+        log(f"service: listening on 127.0.0.1:{port} (metrics {metrics_port}); /healthcheck {status} {data.decode()}")
+        check(status == 200, "/healthcheck does not answer 200")
+
+        def logged(i, tj, status, data, wall, counts=None):
+            b = state.breakdowns[-1] if status == 200 else {}
+            log(f"service request {i} (seed {SERVICE_SEEDS[i]}): {status}, wall {wall:.1f} ms; phases (ms) "
+                + json.dumps({k: round(v, 3) for k, v in b.get("phases_ms", {}).items()}))
+            log("  prover phases (ms): " + json.dumps({k: round(v, 3) for k, v in b.get("prover_phase_ms", {}).items()}))
+            if counts is not None:
+                log(f"  launch counts (one POST /v0/prove): {json.dumps(counts)}")
+            check_prove_response(state, vk, tj, status, data, f"request {i}")
+
+        for i, tj in enumerate(jwts[:3]):
+            if i == 0:
+                _build.reset_launch_counts()
+            status, data, wall = http_call(port, "POST", "/v0/prove", json.dumps(prove_request(tj)).encode())
+            counts = _build.launch_counts() if i == 0 else None
+            logged(i, tj, status, data, wall, counts)
+            if counts is not None and prove_kernels:
+                for name, _, _, path in KERNELS:
+                    if path == "prove":
+                        check(counts.get(name, 0) > 0, f"kernel {name} was not launched by a prove request")
+
+        results: dict = {}
+
+        def concurrent(i, tj):
+            results[i] = http_call(port, "POST", "/v0/prove", json.dumps(prove_request(tj)).encode())
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=concurrent, args=(i, jwts[i])) for i in (3, 4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        log(f"service: two requests at once in {1e3 * (time.perf_counter() - t0):.1f} ms: walls "
+            f"{[round(results[i][2], 1) for i in (3, 4)]} ms; phases (ms) of the two: "
+            + json.dumps([{k: round(v, 1) for k, v in b["phases_ms"].items()} for b in list(state.breakdowns)[-2:]]))
+        for i in (3, 4):
+            check_prove_response(state, vk, jwts[i], results[i][0], results[i][1], f"concurrent request {i}")
+
+        bad = prove_request(jwts[0])
+        bad["jwt_b64"] = bad["jwt_b64"][:-8] + ("AAAAAAAA" if not bad["jwt_b64"].endswith("AAAAAAAA") else "BBBBBBBB")
+        status, data, wall = http_call(port, "POST", "/v0/prove", json.dumps(bad).encode())
+        log(f"service: tampered JWT signature -> {status} {data.decode()[:120]} ({wall:.1f} ms)")
+        check(status == 400, f"a tampered JWT answered {status}, not 400")
+
+        status, data, _ = http_call(metrics_port, "GET", "/")
+        text = data.decode()
+        missing = [p for p in PROVE_PHASES if f'phase="{p}"' not in text]
+        log(f"service: metrics {status}, {len(text)} bytes, prove_breakdown phases missing: {missing}")
+        check(status == 200 and not missing, f"the metrics text lacks the prove_breakdown phases {missing}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        metrics.shutdown()
+        metrics.server_close()
+        thread.join(timeout=10)
+
+
+def keyless_path(dev, setup_counts: dict, records: dict) -> None:
+    """The service's path: procure the setup on disk, start the service
+    warm from it, prove through it, then serve over HTTP."""
+    import shutil
+
+    import torch
+
+    cs, setup_dir, res = keyless_procure(dev, setup_counts, records)
+    kw, wires, public_hash = keyless_witness(cs, setup_dir)
+    del cs
+    state = start_service(dev, res.pk)
+    del res
+    torch.cuda.empty_cache()
+    keyless_proofs(dev, state, kw, wires, public_hash)
+    del wires
+    serve_checks(state, setup_dir)
+    shutil.rmtree(SETUP_ROOT)  # ~10 GB of setup files; a failed run keeps them
 
 
 def timed_proof(prover, witness, r, s):

@@ -149,3 +149,25 @@ def make_test_jwt(
         skip_aud_checks=skip_aud_checks,
     )
     return TestJwt(vi=vi, rsa_key=key, jwt_str=jwt_str)
+
+
+def prove_request(tj: TestJwt) -> dict:
+    """The POST /v0/prove body (the service's RequestInput JSON) that asks
+    for a proof of `tj` under the fixture's ephemeral key, pepper and
+    expiry."""
+    vi = tj.vi
+    body = {
+        "jwt_b64": tj.jwt_str,
+        "epk": vi.epk_bytes.hex(),
+        "epk_blinder": vi.epk_blinder_fr.to_bytes(31, "little").hex(),
+        "exp_date_secs": vi.exp_date_secs,
+        "exp_horizon_secs": vi.exp_horizon_secs,
+        "pepper": vi.pepper_fr.to_bytes(31, "little").hex(),
+        "uid_key": vi.uid_key,
+        "skip_aud_checks": vi.skip_aud_checks,
+    }
+    if vi.extra_field is not None:
+        body["extra_field"] = vi.extra_field
+    if vi.idc_aud is not None:
+        body["idc_aud"] = vi.idc_aud
+    return body

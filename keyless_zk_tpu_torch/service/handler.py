@@ -1,0 +1,95 @@
+"""HTTP request routing.
+
+Mirror of prover-service/src/request_handler/handler.rs:19-32, 209-264:
+CORS/OPTIONS handling and the five endpoints
+  POST /v0/prove   GET /about   GET /config   GET /healthcheck
+  GET /cached/jwk
+with 400/500 mapping per error.rs:8-22 and per-request latency metrics.
+
+A jax-free copy of keyless_zk_tpu/service/handler.py: the port imports
+nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+from .metrics import JWT_ATTRIBUTE_SIZES, REQUEST_HANDLING_SECONDS
+from .types import BadRequest, InternalError, error_response
+
+CORS_HEADERS = {
+    "Access-Control-Allow-Origin": "*",
+    "Access-Control-Allow-Methods": "GET, POST, OPTIONS",
+    "Access-Control-Allow-Headers": "Content-Type",
+}
+
+_BUILD_INFO_CACHE: dict | None = None
+
+
+def _build_info() -> dict:
+    """Build metadata for /about (aptos-build-info analog)."""
+    global _BUILD_INFO_CACHE
+    if _BUILD_INFO_CACHE is None:
+        import subprocess
+
+        info = {"build_package": "keyless-zk-tpu-torch", "build_version": "0.1.0"}
+        try:
+            commit = subprocess.run(
+                ["git", "rev-parse", "HEAD"],
+                capture_output=True, text=True, timeout=5,
+                cwd=__file__.rsplit("/", 3)[0],
+            ).stdout.strip()
+            if commit:
+                info["build_commit_hash"] = commit
+        except Exception:
+            pass
+        _BUILD_INFO_CACHE = info
+    return _BUILD_INFO_CACHE
+
+
+def handle_request(state, method: str, path: str, body: bytes) -> tuple[int, dict, dict]:
+    """Returns (status, headers, json_payload)."""
+    t0 = time.monotonic()
+    endpoint = path if path in ("/v0/prove", "/about", "/config", "/healthcheck", "/cached/jwk") else "invalid"
+    try:
+        status, payload = _route(state, method, path, body)
+    except BadRequest as e:
+        status, payload = 400, error_response(str(e))
+    except InternalError as e:
+        status, payload = 500, error_response(str(e))
+    except Exception as e:  # noqa: BLE001 — never crash the server loop
+        status, payload = 500, error_response(f"unexpected error: {e}")
+    REQUEST_HANDLING_SECONDS.observe(
+        time.monotonic() - t0, endpoint=endpoint, method=method, code=str(status)
+    )
+    return status, dict(CORS_HEADERS), payload
+
+
+def _route(state, method: str, path: str, body: bytes) -> tuple[int, dict]:
+    if method == "OPTIONS":
+        return 200, {}
+    if method == "POST" and path == "/v0/prove":
+        if body:
+            try:
+                jwt_len = len(json.loads(body).get("jwt_b64", ""))
+                JWT_ATTRIBUTE_SIZES.observe(jwt_len, attribute="jwt_b64")
+            except Exception:
+                pass
+        return 200, state.handle_prove(body)
+    if method == "GET" and path == "/healthcheck":
+        ok, why = state.healthy() if hasattr(state, "healthy") else (True, "ok")
+        return (200, {"status": "ok"}) if ok else (503, {"status": "unhealthy", "reason": why})
+    if method == "GET" and path == "/about":
+        # deployment_information.rs:12-60: build info + TW pubkey
+        return 200, {
+            **_build_info(),
+            **state.deployment_info,
+            "training_wheels_public_key": state.tw_keypair.pk.hex(),
+        }
+    if method == "GET" and path == "/config":
+        cfg = state.config
+        return 200, {k: getattr(cfg, k) for k in cfg.__dataclass_fields__}
+    if method == "GET" and path == "/cached/jwk":
+        return 200, state.jwk_cache.snapshot()
+    return 404, error_response(f"no handler for {method} {path}")
