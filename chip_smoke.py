@@ -20,8 +20,8 @@ Phases, in order; any failure exits non-zero:
    partial (G1 2^20 + 37, G2 2^18 + 61 points), against their plain
    versions; the mixed add also with one affine point for the whole batch
    (nq == 1), planted as P == Q and P == -Q in some lanes, and at
-   infinity; the full add's launches are counted here (no path calls it);
-5. a small proof (synthetic key at domain 2^12) on the card, which runs the
+   infinity;
+5. a small proof (synthetic key at domain 2^10) on the card, which runs the
    matmul NTT, and on the CPU through the plain versions, which runs the
    butterfly NTT, with the same r and s: the proofs must be equal, and
    equal to the key's discrete-log oracle;
@@ -53,6 +53,12 @@ Phases, in order; any failure exits non-zero:
    then the prover CLI: the key's zkey, witness and vk written under
    build/chip_smoke/cli, `python -m keyless_zk_tpu_torch.groth16.cli prove`
    in a subprocess (exit 0, "verified: true") and `verify` on its output;
+   then the sharded path over a one-process NCCL group (torch.distributed
+   on 127.0.0.1): `ShardedGroth16Prover.prove` with the same r and s equal
+   to the single prover's proof and verifying (its launch counts: K3's
+   full add combines each MSM's partials, and each captured call of it is
+   held against its plain version), `four_step_ntt` forward and inverse
+   equal to the prover's plan, `sharded_msm` equal to `msm` on the H table;
 8. the service's path at full width. Procure: the real keyless circuit
    (`KeylessConfig()`: 1,377,553 wires, 1,406,751 constraints, domain 2^21)
    from the port's `build_keyless_circuit`, then `setup_tool.procure` into
@@ -80,9 +86,19 @@ Phases, in order; any failure exits non-zero:
    verification_key.json against the response's public-inputs hash and a
    training-wheels signature that verifies over the BCS message rebuilt
    from the response; the launch counts of one request (every prove-path
-   kernel > 0); a tampered JWT answered 400; /healthcheck 200; the nine
-   prove phases in the metrics text. Each step's seconds are logged, and
-   each request's wall ms, nine phase ms and the prover's phase ms.
+   kernel > 0); then, with a BatchProver (max_batch 4) around the same
+   prover, four POST /v0/prove at once, each 200 and verifying, with the
+   batch sizes the worker drained; a tampered JWT answered 400;
+   /healthcheck 200; the nine prove phases in the metrics text. Each
+   step's seconds are logged, and each request's wall ms, nine phase ms
+   and the prover's phase ms. Between the proofs and the service, batched
+   proving on the same prover (no second prover is built): the witnesses
+   of four seeded JWTs, a warm-up batch of four whose K7 inputs are kept,
+   every proof verifying (a tampered one not), its msm_b2 and msm_h equal
+   to the single prover's MSMs of the same witnesses; the batched K7
+   against its plain version at B = 1, 2 and 4 on those window totals and
+   on planted edge cases; three timed batches at B = 1, 2 and 4 with
+   proofs_per_sec, phases, launches per batch and peak device memory.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -100,17 +116,21 @@ import time
 from pathlib import Path
 
 KERNELS = [
-    # (wrapper = launch counter, source, the TPU kernel it replaces, the path
-    # that launches it: "prove", "setup", or None for a kernel no path calls)
+    # (record: the wrapper, whose counter gives its launches; source; the TPU
+    # kernel it replaces; the path whose run gives its launches: "prove",
+    # "setup", "batch" or "sharded")
     ("mont_mul", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145", "prove"),
     ("curve_madd", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:130", "setup"),
     ("curve_dbl", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:152", "setup"),
-    ("curve_add", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:168", None),
+    ("curve_add", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:168", "sharded"),
     ("window_scan", "keyless_zk_tpu_torch/csrc/msm_scan.cu", "keyless_zk_tpu/ops/pallas_msm.py:253", "prove"),
     ("boundary_merge", "keyless_zk_tpu_torch/csrc/msm_merge.cu", "keyless_zk_tpu/ops/pallas_msm.py:413", "prove"),
     ("weighted_bucket_total", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:548",
      "prove"),
     ("horner_total", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:615", "prove"),
+    # K7 over a batch's (3R, B, Wn) window totals, B blocks in one launch
+    ("horner_total_batched", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:615",
+     "batch"),
     ("redc", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:115", "prove"),
     ("redc_twiddle", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:122", "prove"),
 ]
@@ -357,16 +377,14 @@ def k3_inputs(tag: str, n: int, dev):
             broadcast)
 
 
-def k3_checks(dev, records: dict) -> int:
+def k3_checks(dev, records: dict) -> None:
     """madd, dbl and add on random batches with the edge cases, G1 2^20 + 37
     and G2 2^18 + 61 points (the last block of 128 is partial), and madd
-    with one affine point for the batch (untimed); returns the full add's
-    launches (its only ones)."""
+    with one affine point for the batch (untimed)."""
     import torch
 
     from keyless_zk_tpu_torch.ops import cuda_curve
 
-    add_launches = 0
     for tag, n in (("fq", (1 << 20) + 37), ("fq2", (1 << 18) + 61)):
         p, q, (qx, qy, q_inf), broadcast = k3_inputs(tag, n, dev)
         torch.cuda.synchronize()
@@ -376,10 +394,8 @@ def k3_checks(dev, records: dict) -> int:
                 imad=group_imad("madd", tag, n) + group_imad("dbl_affine", tag, n_dbl_affine))
         compare(records, "curve_dbl", cuda_curve.curve_dbl, cuda_curve.dbl_plain, (p, tag),
                 f"{tag} n={n}", imad=group_imad("dbl", tag, n))
-        before = cuda_curve.curve_add.launches
         compare(records, "curve_add", cuda_curve.curve_add, cuda_curve.add_plain, (p, q, tag),
                 f"{tag} n={n}, edge cases planted", imad=group_imad("add", tag, n))
-        add_launches += cuda_curve.curve_add.launches - before
         for label, (bp, q1) in broadcast.items():
             got = cuda_curve.curve_madd(bp, *q1, tag)
             with plain_kernels():
@@ -387,7 +403,6 @@ def k3_checks(dev, records: dict) -> int:
             planted(records, "curve_madd", max_abs_err(got, want), f"{tag} n={n}, nq=1, {label}")
         del p, q, qx, qy, q_inf, broadcast
         torch.cuda.empty_cache()
-    return add_launches
 
 
 # ---- capturing the kernels' inputs on a path ------------------------------------
@@ -481,7 +496,7 @@ def _describe(sig: tuple) -> str:
             grids.append(f"{wn * n} x {j}")
         return (f"{tag} Wn={wn} NB={nb}: walk {lanes} lanes per window, {-(-wn * lanes // 128)} blocks of 128; "
                 f"sums {', '.join(grids) or 'none'} (blocks x threads)")
-    (_, wn), c = rest
+    (*_, wn), c = rest
     return f"{tag} Wn={wn} c={c}, {horner_ops(wn, c)} chained group ops"
 
 
@@ -505,8 +520,10 @@ def msm_imad(name: str, args) -> float:
     if name == "weighted_bucket_total":  # the running sum and its integral over every bucket
         _, tbl = args
         return group_imad("add", tag, 2 * tbl.shape[1] * tbl.shape[2])
-    _, wins, c = args  # Horner: c doublings and one add per window below the top
-    return group_imad("dbl", tag, (wins.shape[1] - 1) * c) + group_imad("add", tag, wins.shape[1] - 1)
+    _, wins, c = args  # Horner, per chain: c doublings and one add per window below the top
+    wn = wins.shape[-1]
+    chains = wins[0].numel() // wn
+    return chains * (group_imad("dbl", tag, (wn - 1) * c) + group_imad("add", tag, wn - 1))
 
 
 def scan_check(records, args, note) -> None:
@@ -600,45 +617,102 @@ def k5_planted(dev, records, m: int = 1 << 16) -> None:
             planted(records, "boundary_merge", max_abs_err(got, want), f"{tag} m={m} {label}")
 
 
-def k7_planted(dev, records) -> None:
-    """K7 at c = 12, G1 and G2, on planted window totals: the top and a
-    middle window at infinity; W0 = 2^c W1 (add_core's doubling branch);
-    W0 = -2^c W1 (P + (-P), infinity); all at infinity."""
+def k7_cases(tag: str, c: int, dev) -> dict:
+    """K7's planted window totals, {label: [W0, W1, ...]} (one-point
+    JacPoints, lowest window first): the top and a middle window at
+    infinity; W0 = 2^c W1 (add_core's doubling branch); W0 = -2^c W1
+    (P + (-P), infinity); all at infinity."""
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
+    from keyless_zk_tpu_torch.ops import testgen
+
+    curve = G1_CURVE if tag == "fq" else G2_CURVE
+    f = curve.ops
+    x, y, inf = testgen.random_points(4, seed=47, curve=curve, device=dev)
+    p = curve.dbl(curve.from_affine(x, y, inf.bool()))  # z != 1
+    with plain_kernels():
+        top = JacPoint(*(co[:1] for co in p))
+        big = top
+        for _ in range(c):
+            big = curve.dbl(big)
+    inf_pt = curve.infinity((1,), dev)
+    return {
+        "top and a middle window at infinity": [JacPoint(*(co[1:2] for co in p)), inf_pt,
+                                                JacPoint(*(co[2:3] for co in p)), inf_pt],
+        "W0 = 2^c W1": [big, top],
+        "W0 = -2^c W1": [JacPoint(big.x, f.neg(big.y), big.z), top],
+        "all at infinity": [inf_pt, inf_pt, inf_pt],
+    }
+
+
+def _planes(tag: str, pts: list):
     import torch
 
-    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
-    from keyless_zk_tpu_torch.ops import cuda_msm, testgen
+    from keyless_zk_tpu_torch.curves.jacobian import JacPoint
+    from keyless_zk_tpu_torch.ops import cuda_msm
+
+    return cuda_msm.point_to_planes(JacPoint(*(torch.cat(co) for co in zip(*pts))), tag)
+
+
+def k7_planted(dev, records) -> None:
+    """K7 at c = 12, G1 and G2, on the planted window totals of `k7_cases`."""
+    from keyless_zk_tpu_torch.ops import cuda_msm
 
     c = 12
     for tag in ("fq", "fq2"):
-        curve = G1_CURVE if tag == "fq" else G2_CURVE
-        f = curve.ops
-        x, y, inf = testgen.random_points(4, seed=47, curve=curve, device=dev)
-        p = curve.dbl(curve.from_affine(x, y, inf.bool()))  # z != 1
-        with plain_kernels():
-            top = JacPoint(*(co[:1] for co in p))
-            big = top
-            for _ in range(c):
-                big = curve.dbl(big)
-        inf_pt = curve.infinity((1,), dev)
-
-        def cat(*ps):
-            return cuda_msm.point_to_planes(JacPoint(*(torch.cat(co) for co in zip(*ps))), tag)
-
-        cases = {
-            "top and a middle window at infinity": cat(JacPoint(*(co[1:2] for co in p)), inf_pt,
-                                                       JacPoint(*(co[2:3] for co in p)), inf_pt),
-            "W0 = 2^c W1": cat(big, top),
-            "W0 = -2^c W1": cat(JacPoint(big.x, f.neg(big.y), big.z), top),
-            "all at infinity": cat(inf_pt, inf_pt, inf_pt),
-        }
-        for label, wins in cases.items():
+        for label, pts in k7_cases(tag, c, dev).items():
+            wins = _planes(tag, pts)
             got = cuda_msm.horner_total(tag, wins, c)
             with plain_kernels():
                 want = cuda_msm.horner_total_plain(tag, wins, c)
             planted(records, "horner_total", max_abs_err(got, want), f"{tag} Wn={wins.shape[1]} c={c}, {label}")
             if label == "W0 = -2^c W1":
                 check(bool((got[-cuda_msm.rows_for(tag):] == 0).all()), "K7: P + (-P) is not at infinity")
+
+
+def k7_planted_batched(dev, records) -> None:
+    """The batched K7 at c = 12, G1 and G2, on one batch of the four
+    planted cases of `k7_cases`, each padded to four windows with
+    infinity at the top (Horner's chain reaches each case's own top window
+    from infinity, so every planted branch still fires)."""
+    import torch
+
+    from keyless_zk_tpu_torch.ops import cuda_msm
+
+    c, wn = 12, 4
+    for tag in ("fq", "fq2"):
+        cases = k7_cases(tag, c, dev)
+        pad = cases["all at infinity"][0]
+        wins = torch.stack([_planes(tag, pts + [pad] * (wn - len(pts))) for pts in cases.values()], dim=1)
+        got = cuda_msm.horner_total(tag, wins, c)
+        with plain_kernels():
+            want = cuda_msm.horner_total_plain(tag, wins, c)
+        planted(records, "horner_total_batched", max_abs_err(got, want),
+                f"{tag} B={wins.shape[1]} Wn={wn} c={c}: {'; '.join(cases)}")
+        neg = list(cases).index("W0 = -2^c W1")
+        check(bool((got[-cuda_msm.rows_for(tag):, neg] == 0).all()), "batched K7: P + (-P) is not at infinity")
+
+
+def k7_batched_checks(store: dict, records: dict) -> None:
+    """Each captured call of the batched K7 (the warm-up batch's window
+    totals at B = 4) through the kernel at B = 1, 2 and 4 (its first B
+    elements) and through its plain version. The plain version runs the
+    four independent chains once; its first B columns are its result at B,
+    and its time is recorded with the B = 4 comparison."""
+    from keyless_zk_tpu_torch.ops import cuda_msm
+
+    for tag in ("fq", "fq2"):
+        check(any(sig[:2] == ("horner_total", tag) and len(sig[2]) == 3 for sig in store),
+              f"no batched call of horner_total ({tag}) captured")
+    for sig, (tag, wins, c) in store.items():
+        *_, B, wn = wins.shape
+        with plain_kernels():
+            want, plain_ms = cuda_ms(lambda: cuda_msm.horner_total_plain(tag, wins, c), warm=False)
+        for b in (1, 2, 4):
+            sub = wins[:, :b].contiguous()
+            got, ms = cuda_ms(lambda: cuda_msm.horner_total(tag, sub, c), reps=3)
+            record(records, "horner_total_batched", max_abs_err(got, want[:, :b]), ms, plain_ms if b == B else 0.0,
+                   f"{tag} B={b} Wn={wn} c={c}: {b} chains of {horner_ops(wn, c)} group ops in one launch",
+                   moved=nbytes(sub, got), imad=msm_imad("horner_total", (tag, sub, c)))
 
 
 def msm_kernel_checks(store: dict, records: dict, dev) -> None:
@@ -661,7 +735,7 @@ def msm_kernel_checks(store: dict, records: dict, dev) -> None:
         note = _describe(sig)
         if name == "horner_total":
             _, ms = cuda_ms(lambda: cuda_msm.horner_total(*args), reps=3)
-            note += f", {1e3 * ms / horner_ops(args[1].shape[1], args[2]):.3f} us per chained op"
+            note += f", {1e3 * ms / horner_ops(args[1].shape[-1], args[2]):.3f} us per chained op"
         compare(records, name, getattr(cuda_msm, name), getattr(cuda_msm, name + "_plain"), args, note,
                 imad=msm_imad(name, args))
     k5_planted(dev, records)
@@ -706,15 +780,15 @@ def small_proof(dev) -> None:
     from keyless_zk_tpu_torch.ops import testgen
 
     key = testgen.synthetic_key(
-        5, n_vars=3000, n_public=1, domain_pow=12, n_distinct_a=2600, n_distinct_b=1800, n_coefs=80_000, device=dev
+        5, n_vars=1000, n_public=1, domain_pow=10, n_distinct_a=900, n_distinct_b=600, n_coefs=20_000, device=dev
     )
     gpu = Groth16Prover(key.pk, dev)
     cpu = Groth16Prover(key.pk, "cpu")
     log(f"small proof plans: gpu {type(gpu.plan).__name__}, cpu {type(cpu.plan).__name__}")
     check(type(gpu.plan).__name__ == "MxuNTTPlan", "the card's small proof does not run the matmul NTT")
-    gpu_proof, _ = prove_checked(gpu, key, R_FIXED, S_FIXED, "small proof (gpu, matmul NTT, domain 2^12)")
+    gpu_proof, _ = prove_checked(gpu, key, R_FIXED, S_FIXED, "small proof (gpu, matmul NTT, domain 2^10)")
     torch.set_num_threads(8)
-    cpu_proof, _ = prove_checked(cpu, key, R_FIXED, S_FIXED, "small proof (cpu plain, butterfly NTT, domain 2^12)")
+    cpu_proof, _ = prove_checked(cpu, key, R_FIXED, S_FIXED, "small proof (cpu plain, butterfly NTT, domain 2^10)")
     equal = gpu_proof == cpu_proof
     log(f"small proof: gpu == cpu: {equal}")
     check(equal, "the GPU proof differs from the CPU proof")
@@ -894,7 +968,7 @@ def verify_checked(vk, public: list, proof, label: str, tamper: bool = False) ->
     check(ok, f"{label}: the proof does not verify")
 
 
-def setup_path(dev, domain_pow: int = 16) -> None:
+def setup_path(dev, records: dict, sharded_counts: dict, domain_pow: int = 16) -> None:
     import torch
 
     from keyless_zk_tpu_torch.circuits import groth16_setup, r1cs_from_cs
@@ -929,6 +1003,75 @@ def setup_path(dev, domain_pow: int = 16) -> None:
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
     verify_checked(res.vk, [w[a]], proof, "setup path", tamper=True)
     cli_checks(res, w, dev)
+    sharded_checks(res, prover, witness, proof, [w[a]], dev, records, sharded_counts)
+
+
+def sharded_checks(res, prover, witness, proof, public: list, dev, records: dict, counts: dict) -> None:
+    """The sharded path on the chain key over a one-process NCCL group
+    (127.0.0.1, a free port): the sharded prover's proof for the same r and
+    s equals the single prover's and verifies (its launch counts into
+    `counts`; each captured call of K3's add, which combines the MSM
+    partials, against its plain version); four_step_ntt forward and inverse
+    equal to the prover's plan; sharded_msm equal to msm on the H table."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE
+    from keyless_zk_tpu_torch.fields.torch_field import FR
+    from keyless_zk_tpu_torch.ops import _build, cuda_curve
+    from keyless_zk_tpu_torch.ops.msm import msm
+    from keyless_zk_tpu_torch.parallel import distributed
+    from keyless_zk_tpu_torch.parallel.sharded import four_step_ntt, make_mesh, sharded_msm
+    from keyless_zk_tpu_torch.parallel.sharded_prover import ShardedGroth16Prover
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    check(distributed.initialize(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, device=dev),
+          "torch.distributed did not initialize")
+    try:
+        mesh = make_mesh()
+        sharded = ShardedGroth16Prover(res.pk, mesh, dev)
+        log(f"sharded: {dist.get_backend()} group of {mesh.size} on 127.0.0.1:{port}, prover construction "
+            f"{time.perf_counter() - t0:.1f} s")
+        calls: dict = {}
+        _build.reset_launch_counts()
+        with capture_calls(cuda_curve, ("curve_add",), calls):
+            t0 = time.perf_counter()
+            got = sharded.prove(witness, r=R_FIXED, s=S_FIXED)
+            wall = (time.perf_counter() - t0) * 1e3
+        counts.update(_build.launch_counts())
+        same = got.to_json_dict() == proof.to_json_dict()
+        log(f"sharded: chain proof {wall:.1f} ms, equal to the single prover's: {same}; phases (ms) "
+            + json.dumps({k: round(v, 3) for k, v in sharded.phase_ms.items()}))
+        log(f"launch counts (sharded prove path, one proof): {json.dumps(counts)}")
+        check(same, "the sharded prover's proof differs from the single prover's")
+        verify_checked(res.vk, public, got, "sharded chain proof")
+        check(counts.get("curve_add", 0) > 0, "K3's add was not launched by the sharded prover")
+        for sig, args in calls.items():
+            tag = args[-1]
+            compare(records, "curve_add", cuda_curve.curve_add, cuda_curve.add_plain, args,
+                    f"sharded combine, {tag} n={args[0].x.shape[0]}", imad=group_imad("add", tag, args[0].x.shape[0]))
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(53)
+        x = rand_field(gen, prover.pk.domain_size, FR, dev)
+        for inverse in (False, True):
+            a, ms = cuda_ms(lambda: four_step_ntt(x, domain_pow=prover.domain_pow, mesh=mesh, inverse=inverse), reps=3)
+            b, plan_ms = cuda_ms(lambda: prover.plan.intt(x) if inverse else prover.plan.ntt(x), reps=3)
+            log(f"sharded: four_step_ntt{' inverse' if inverse else ''} 2^{prover.domain_pow} == the plan's: "
+                f"{torch.equal(a, b)} ({ms:.3f} ms, the plan {plan_ms:.3f} ms)")
+            check(torch.equal(a, b), "four_step_ntt differs from the prover's plan")
+        sc = prover._merge_scalars(prover.last_h, prover._merge_h)
+        a = G1_CURVE.decode_jacobian(_as_batch(sharded_msm(*prover.points_h, sc, curve=G1_CURVE, mesh=mesh)))
+        b = G1_CURVE.decode_jacobian(_as_batch(msm(*prover.points_h, sc, curve=G1_CURVE)))
+        log(f"sharded: sharded_msm == msm on the H table ({sc.shape[0]} rows): {a == b}")
+        check(a == b, "sharded_msm differs from msm")
+    finally:
+        dist.destroy_process_group()
 
 
 CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "cli"
@@ -1250,9 +1393,129 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash) -> None:
     log_eval_ab("keyless path", prover, w)
 
 
+# ---- batched proving ---------------------------------------------------------------
+
+BATCH_SEEDS = (21, 22, 23, 24)
+
+
+def batch_witnesses(state) -> tuple[list, list]:
+    """The witness limbs and public-inputs hashes of test JWTs of
+    BATCH_SEEDS, through the service's witness program."""
+    from keyless_zk_tpu_torch.circuits.keyless_circuit import witness_kwargs
+    from keyless_zk_tpu_torch.input_processing.input_signals import derive_circuit_input_signals
+    from keyless_zk_tpu_torch.input_processing.testjwt import make_test_jwt
+
+    t0 = time.perf_counter()
+    wits, hashes = [], []
+    for seed in BATCH_SEEDS:
+        signals, public_hash = derive_circuit_input_signals(state.circuit_config, make_test_jwt(seed=seed).vi)
+        wires = state.witness_prog.compute_witness(**witness_kwargs(signals))
+        wits.append(state.witness_prog.witness_limbs(wires))
+        hashes.append(public_hash)
+    log(f"batch: {len(wits)} witnesses of JWT seeds {list(BATCH_SEEDS)} in {time.perf_counter() - t0:.1f} s")
+    check(len(set(hashes)) == len(hashes), "the batch's JWTs give equal public-inputs hashes")
+    return wits, hashes
+
+
+def batched_msms_equal(prover, bp, wits, dev) -> None:
+    """The batch's msm_b2 and msm_h (the batched MSM over the batch's merged
+    witnesses and its h scalars) against the single prover's MSM of each
+    element: equal as affine points."""
+    import numpy as np
+    import torch
+
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE
+    from keyless_zk_tpu_torch.groth16.prover import _SPARSE_C
+    from keyless_zk_tpu_torch.ops.msm import msm_batch
+
+    w = torch.from_numpy(np.stack(wits).astype(np.int32)).to(dev)
+    for name, table, merge, curve, scalars, kw in (
+        ("msm_b2", prover.points_b2, prover._merge_b2, G2_CURVE, w, {"c": _SPARSE_C}),
+        ("msm_h", prover.points_h, prover._merge_h, G1_CURVE, bp.last_h, {}),
+    ):
+        got = curve.decode_jacobian(msm_batch(*table, prover._merge_scalars(scalars, merge), curve=curve, **kw))
+        want = [curve.decode_jacobian(_as_batch(prover._msm(table, prover._merge_scalars(scalars[i], merge), curve,
+                                                             **kw)))[0] for i in range(len(wits))]
+        log(f"batch: {name} of B = {len(wits)} == the single prover's {name} per element: {got == want}")
+        check(got == want, f"the batched {name} differs from the single prover's")
+
+
+def _as_batch(p):
+    """A Jacobian point as a batch of one."""
+    from keyless_zk_tpu_torch.curves.jacobian import JacPoint
+
+    return JacPoint(*(co[None] for co in p))
+
+
+def batch_proofs(dev, state, records: dict, counts: dict) -> None:
+    """Batched proving on the service's prover (no second prover): a warm-up
+    batch of four (its K7 inputs kept, every proof verifying, a tampered one
+    not, its msm_b2 and msm_h against the single prover), the batched K7
+    against its plain version, then three timed batches at B = 1, 2 and 4:
+    ms per batch, proofs_per_sec, phases, launches per batch, peak GiB."""
+    import torch
+
+    from keyless_zk_tpu_torch.ops import _build, cuda_msm
+    from keyless_zk_tpu_torch.parallel.batch_prover import BatchProver
+
+    wits, hashes = batch_witnesses(state)
+    bp = BatchProver(state.prover, max_batch=len(wits))
+    try:
+        calls: dict = {}
+        with capture_calls(cuda_msm, ("horner_total",), calls):
+            t0 = time.perf_counter()
+            proofs = bp.prove_batch(wits)
+            wall = (time.perf_counter() - t0) * 1e3
+        log(f"batch warm-up B = {len(wits)}: wall {wall:.1f} ms; phases (ms) "
+            + json.dumps({k: round(v, 3) for k, v in bp.phase_ms.items()}))
+        for i, (proof, h) in enumerate(zip(proofs, hashes)):
+            verify_checked(state.vk, [h], proof, f"batch warm-up element {i}", tamper=i == 0)
+        check(not verifies(state.vk, [hashes[1]], proofs[0]),
+              "a batch proof verifies against another element's public input")
+        batched_msms_equal(state.prover, bp, wits, dev)
+        k7_batched_checks(calls, records)
+        del calls
+        k7_planted_batched(dev, records)
+        torch.cuda.empty_cache()
+
+        for B in (1, 2, 4):
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for i in range(3):
+                if i == 0:
+                    _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                proofs = bp.prove_batch(wits[:B])
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    per_batch = _build.launch_counts()
+                for j, proof in enumerate(proofs):
+                    check(verifies(state.vk, [hashes[j]], proof), f"batch B={B} element {j} does not verify")
+            med = sorted(walls)[1]
+            log(f"batch B = {B}: ms per batch {[round(w, 1) for w in walls]}, median {med:.1f}, proofs_per_sec "
+                f"{1e3 * B / med:.3f}, every proof verifies; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases (ms) of the last "
+                + json.dumps({k: round(v, 3) for k, v in bp.phase_ms.items()}))
+            log(f"  launch counts (one batch of {B}): {json.dumps(per_batch)}")
+            for name, _, _, path in KERNELS:
+                if path == "prove":
+                    check(per_batch.get(name, 0) > 0, f"kernel {name} was not launched by a batch of {B}")
+        counts.update(per_batch)  # the batch of four's
+        counts["horner_total_batched"] = counts["horner_total"]
+    finally:
+        bp.shutdown()
+
+
+def verifies(vk, public: list, proof) -> bool:
+    from keyless_zk_tpu_torch.groth16 import verify_groth16
+
+    return verify_groth16(vk, public, proof.to_json_dict())
+
+
 # ---- the service path ------------------------------------------------------------
 
 SERVICE_SEEDS = (11, 12, 13, 14, 15)  # three sequential requests, then two at once
+BATCH_SERVICE_SEEDS = (16, 17, 18, 19)  # four at once through a BatchProver
 
 
 def decode_response_proof(payload: dict) -> dict:
@@ -1329,7 +1592,7 @@ def serve_checks(state, setup_dir: str, prove_kernels: bool = True) -> None:
     with open(Path(setup_dir, "verification_key.json")) as f:
         vk = json.load(f)
     t0 = time.perf_counter()
-    jwts = [make_test_jwt(seed=s, kid=f"test-kid-{s}") for s in SERVICE_SEEDS]
+    jwts = [make_test_jwt(seed=s, kid=f"test-kid-{s}") for s in SERVICE_SEEDS + BATCH_SERVICE_SEEDS]
     for tj in jwts:
         state.jwk_cache.insert(tj.vi.jwt.payload.iss, RsaJwk(kid=tj.vi.jwt.header.kid, n=tj.rsa_key.n))
     log(f"service: {len(jwts)} test JWTs and their keys in the JWK cache in {time.perf_counter() - t0:.1f} s")
@@ -1380,6 +1643,7 @@ def serve_checks(state, setup_dir: str, prove_kernels: bool = True) -> None:
             + json.dumps([{k: round(v, 1) for k, v in b["phases_ms"].items()} for b in list(state.breakdowns)[-2:]]))
         for i in (3, 4):
             check_prove_response(state, vk, jwts[i], results[i][0], results[i][1], f"concurrent request {i}")
+        batched_requests(state, vk, port, jwts[len(SERVICE_SEEDS):])
 
         bad = prove_request(jwts[0])
         bad["jwt_b64"] = bad["jwt_b64"][:-8] + ("AAAAAAAA" if not bad["jwt_b64"].endswith("AAAAAAAA") else "BBBBBBBB")
@@ -1400,14 +1664,51 @@ def serve_checks(state, setup_dir: str, prove_kernels: bool = True) -> None:
         thread.join(timeout=10)
 
 
-def keyless_path(dev, setup_counts: dict, records: dict) -> None:
+def batched_requests(state, vk: dict, port: int, jwts: list) -> None:
+    """`batch_proving` on the running service: a BatchProver (max_batch 4)
+    around its prover, four POST /v0/prove at once, each 200 and verifying;
+    the walls and the batch sizes the worker drained."""
+    import threading
+
+    from keyless_zk_tpu_torch.input_processing.testjwt import prove_request
+    from keyless_zk_tpu_torch.parallel.batch_prover import BatchProver
+
+    state.config.batch_proving, state.config.max_batch = True, 4
+    state.batch_prover = BatchProver(state.prover, max_batch=4)
+    results: dict = {}
+
+    def post(i, tj):
+        results[i] = http_call(port, "POST", "/v0/prove", json.dumps(prove_request(tj)).encode())
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i, tj)) for i, tj in enumerate(jwts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        log(f"service, batch_proving: {len(jwts)} requests at once in {1e3 * (time.perf_counter() - t0):.1f} ms: "
+            f"walls {[round(results[i][2], 1) for i in range(len(jwts))]} ms, batches drained "
+            f"{list(state.batch_prover.batch_sizes)}; per request (batch size, generate_proof ms): "
+            + json.dumps([(b["batch_size"], round(b["phases_ms"]["generate_proof"], 1))
+                          for b in list(state.breakdowns)[-len(jwts):]]))
+        for i, tj in enumerate(jwts):
+            check_prove_response(state, vk, tj, results[i][0], results[i][1], f"batched request {i}")
+    finally:
+        state.batch_prover.shutdown()
+        state.batch_prover = None
+        state.config.batch_proving = False
+
+
+def keyless_path(dev, records: dict, counts: dict) -> None:
     """The service's path: procure the setup on disk, start the service
-    warm from it, prove through it, then serve over HTTP."""
+    warm from it, prove through it, prove batches with its prover, then
+    serve over HTTP."""
     import shutil
 
     import torch
 
-    cs, setup_dir, res = keyless_procure(dev, setup_counts, records)
+    cs, setup_dir, res = keyless_procure(dev, counts["setup"], records)
     kw, wires, public_hash = keyless_witness(cs, setup_dir)
     del cs
     state = start_service(dev, res.pk)
@@ -1415,6 +1716,9 @@ def keyless_path(dev, setup_counts: dict, records: dict) -> None:
     torch.cuda.empty_cache()
     keyless_proofs(dev, state, kw, wires, public_hash)
     del wires
+    torch.cuda.empty_cache()
+    batch_proofs(dev, state, records, counts["batch"])
+    torch.cuda.empty_cache()
     serve_checks(state, setup_dir)
     shutil.rmtree(SETUP_ROOT)  # ~10 GB of setup files; a failed run keeps them
 
@@ -1452,7 +1756,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     records: dict = {}
-    counts = {"prove": {}, "setup": {}}
+    counts: dict = {"prove": {}, "setup": {}, "batch": {}, "sharded": {}}
     try:
         log(f"card: {card}")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -1464,13 +1768,13 @@ def main() -> int:
         check(all(any(k.startswith(name + " ") for k in report) for name in PTXAS_KERNELS),
               "build.log lacks the ptxas report of a K3-K7 kernel")
         mont_mul_checks(dev, records)
-        counts[None] = {"curve_add": k3_checks(dev, records)}
+        k3_checks(dev, records)
         small_proof(dev)
         full_width(dev, counts["prove"], records)
         torch.cuda.empty_cache()
-        setup_path(dev)
+        setup_path(dev, records, counts["sharded"])
         torch.cuda.empty_cache()
-        keyless_path(dev, counts["setup"], records)
+        keyless_path(dev, records, counts)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

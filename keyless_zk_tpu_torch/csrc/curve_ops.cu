@@ -5,7 +5,8 @@
 // and `add_pallas` (one `_build` pallas_call with three bodies). The callers
 // are key setup's fixed-base ladder (circuits/setup.py: one doubling and one
 // mixed add of the generator per scalar bit, over 2^21-point passes) and
-// the small-n MSM (ops/msm.py `_msm_small`); nothing calls the full add.
+// the small-n MSM (ops/msm.py `_msm_small`); the full add sums the sharded
+// MSM's partials (parallel/sharded.py `sharded_msm`).
 // The mixed add is the complete one (ec.cuh `madd_complete`: infinity on
 // either side, P == Q by the affine doubling, P == -Q), unlike K4's scan,
 // which skips P == Q. Its affine operand may be one point for the whole

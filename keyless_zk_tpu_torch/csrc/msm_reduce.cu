@@ -29,7 +29,11 @@
 // K7 replaces `horner_total` (`_build_horner`): sum_w 2^(c*w) * W_w over at
 // most a few dozen windows, by Horner's chain from the top window: c
 // doublings and one complete add per window (the order of
-// msm._horner_windows). The chain is serial, so one thread ran it before,
+// msm._horner_windows). A batch of B MSMs (ops/msm.py `msm_batch`) gives B
+// independent chains over (3R, B, Wn) window totals; they run in one launch
+// of B one-warp blocks, block b on element b's Wn windows (limb rows at
+// stride B * Wn), where the JAX package launches its kernel once per
+// element: B chains in a row would cost B times the chain's latency. The chain is serial, so one thread ran it before,
 // each group op's 7 (doubling) or 16 (add) products one after another
 // (~5.5 us per G1 op, ~14.9 us per G2 op on the H100, PERF.md). The products
 // of one op are not a chain: a doubling's fall into 3 levels (3, 3, 1), an
@@ -165,17 +169,20 @@ __device__ __forceinline__ bool slots_zero(const Fq* slot, const uint32_t* idx, 
 
 // F: the coordinate field, E = 1 (G1) or 2 (G2) Fq elements per coordinate.
 // Element i of a point is limb rows [16 i, 16 i + 16) of its planes and
-// slot i (p) or 3E + i (q).
+// slot i (p) or 3E + i (q). Block b runs batch element b: its windows are
+// wins[:, b, :] of the (3R, B, Wn) planes, its total out[:, b] of (3R, B).
 template <class F>
 __global__ void __launch_bounds__(kLanes) horner_kernel(const int32_t* __restrict__ wins, int32_t* __restrict__ out,
-                                                        long long Wn, int c, const int32_t* __restrict__ prog,
-                                                        int prog_len) {
+                                                        long long B, long long Wn, int c,
+                                                        const int32_t* __restrict__ prog, int prog_len) {
   constexpr int E = Field<F>::rows / 16;
   __shared__ Fq slot[kSlots];
   __shared__ uint32_t code[kCodeMax];
   const int lane = threadIdx.x;
+  const long long b = blockIdx.x, stride = B * Wn;  // limb rows of the planes
+  wins += b * Wn;
   for (int i = lane; i < prog_len; i += kLanes) code[i] = (uint32_t)prog[i];
-  if (lane < 3 * E) slot[lane] = Field<Fq>::load(wins + 16LL * lane * Wn + (Wn - 1), Wn);
+  if (lane < 3 * E) slot[lane] = Field<Fq>::load(wins + 16LL * lane * stride + (Wn - 1), stride);
   __syncwarp();
   const int n_dbl = (int)code[kDblSteps], n_add = (int)code[kAddSteps];
   const uint32_t* dbl = code + kHeader;
@@ -186,7 +193,7 @@ __global__ void __launch_bounds__(kLanes) horner_kernel(const int32_t* __restric
       run_steps(slot, dbl, n_dbl, lane);
       take_point<E>(slot, code + kDblOut, lane);
     }
-    if (lane < 3 * E) slot[3 * E + lane] = Field<Fq>::load(wins + 16LL * lane * Wn + w, Wn);
+    if (lane < 3 * E) slot[3 * E + lane] = Field<Fq>::load(wins + 16LL * lane * stride + w, stride);
     __syncwarp();
     run_steps(slot, add_prog, n_add, lane);
     // add_core's selects, in its order: q at infinity keeps p
@@ -201,7 +208,7 @@ __global__ void __launch_bounds__(kLanes) horner_kernel(const int32_t* __restric
       take_point<E>(slot, code + kAddOut, lane);
     }
   }
-  if (lane < 3 * E) Field<Fq>::store(out + 16 * lane, 1, slot[lane]);
+  if (lane < 3 * E) Field<Fq>::store(out + 16LL * lane * B + b, B, slot[lane]);
 }
 
 // tbl: (3R, Wn, NB) int32 bucket planes; g: (3R, Wn, T) int32, the lanes'
@@ -232,16 +239,19 @@ extern "C" int kzk_point_sum(const void* in, void* out, long long Wn, long long 
   return (int)cudaGetLastError();
 }
 
-// wins: (3R, Wn) int32 window totals; out: (3R,) = sum_w 2^(c*w) W_w; prog:
-// the group's program (ops/warp_program.py `encode`), prog_len words.
-extern "C" int kzk_horner_total(const void* wins, void* out, long long Wn, int c, const void* prog, int prog_len,
-                                int g2, void* stream) {
-  if (Wn == 0) return 0;
-  if (prog_len > kCodeMax) return (int)cudaErrorInvalidValue;
+// wins: (3R, B, Wn) int32 window totals; out: (3R, B), out[:, b] =
+// sum_w 2^(c*w) W[:, b, w]; prog: the group's program (ops/warp_program.py
+// `encode`), prog_len words. One block of one warp per batch element.
+extern "C" int kzk_horner_total(const void* wins, void* out, long long B, long long Wn, int c, const void* prog,
+                                int prog_len, int g2, void* stream) {
+  if (B == 0 || Wn == 0) return 0;
+  if (prog_len > kCodeMax || B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const auto* w = (const int32_t*)wins;
+  const auto* p = (const int32_t*)prog;
   if (g2)
-    horner_kernel<Fq2><<<1, kLanes, 0, s>>>((const int32_t*)wins, (int32_t*)out, Wn, c, (const int32_t*)prog, prog_len);
+    horner_kernel<Fq2><<<(unsigned)B, kLanes, 0, s>>>(w, (int32_t*)out, B, Wn, c, p, prog_len);
   else
-    horner_kernel<Fq><<<1, kLanes, 0, s>>>((const int32_t*)wins, (int32_t*)out, Wn, c, (const int32_t*)prog, prog_len);
+    horner_kernel<Fq><<<(unsigned)B, kLanes, 0, s>>>(w, (int32_t*)out, B, Wn, c, p, prog_len);
   return (int)cudaGetLastError();
 }

@@ -386,12 +386,18 @@ def segment_diffs(vals: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
 def sorted_segment_sum_mod(values: torch.Tensor, bounds: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """Segment sums of a PRE-SORTED value sequence partitioned by `bounds`
     (k+1 ascending positions): out[k] = sum(values[bounds[k]:bounds[k+1]])
-    mod p, scaled by R^-1 (the REDC of fold_split8_mod).
+    mod p, scaled by R^-1 (the REDC of fold_split8_mod). values (m, ..., 16):
+    axes between the first and the limbs are independent columns.
 
     The int64 cumsum makes the differences exact without the JAX version's
     u32 wrap-around."""
+    m = values.shape[0]
+
+    def sums(v):
+        return segment_diffs(v.reshape(m, -1), bounds).reshape(-1, *values.shape[1:])
+
     lo, hi = split8(values)
-    return fold_split8_mod(segment_diffs(lo, bounds), segment_diffs(hi, bounds), spec)
+    return fold_split8_mod(sums(lo), sums(hi), spec)
 
 
 # ---- host-side conversions ---------------------------------------------------

@@ -125,7 +125,7 @@ def load(path: Path) -> ctypes.CDLL:
         "kzk_boundary_merge_level": [P, P, LL, P, P, P, LL, I, I, P],
         "kzk_bucket_walk": [P, P, LL, LL, LL, I, I, P],
         "kzk_point_sum": [P, P, LL, LL, I, I, P],
-        "kzk_horner_total": [P, P, LL, I, P, I, I, P],
+        "kzk_horner_total": [P, P, LL, LL, I, P, I, I, P],
         "kzk_redc": [P, P, P, LL, P],
         "kzk_curve_madd": [P, P, P, P, P, P, P, P, P, LL, LL, I, P],
         "kzk_curve_dbl": [P, P, P, P, P, P, LL, I, P],

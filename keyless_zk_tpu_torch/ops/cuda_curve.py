@@ -3,8 +3,9 @@ versions and their wrappers.
 
 The kernels (csrc/curve_ops.cu) replace keyless_zk_tpu/ops/pallas_curve.py
 `madd_pallas`, `dbl_pallas` and `add_pallas`; their callers are key
-setup's fixed-base ladder (circuits/setup.py) and the small-n MSM
-(ops/msm.py `_msm_small`). Each wrapper dispatches on its tensors' device
+setup's fixed-base ladder (circuits/setup.py), the small-n MSM
+(ops/msm.py `_msm_small`) and, for the full add, the combine of the
+sharded MSM's partials (parallel/sharded.py `sharded_msm`). Each wrapper dispatches on its tensors' device
 only: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel or raises.
 

@@ -461,12 +461,13 @@ def weighted_bucket_total(tag, tbl):
 # ---- K7: horner over windows --------------------------------------------------
 
 def horner_total_plain(tag, wins, c: int):
-    """Port of msm_sim.horner_total. The kernel runs the same chain on one
+    """Port of msm_sim.horner_total, over every batch element at once (the
+    same chain per element). The kernel runs each element's chain on one
     warp, each group op as a program of independent field operations
     (ops/warp_program.py); every field result is canonical, so the two agree
     bit for bit."""
     curve = curve_for(tag)
-    tot = _horner_windows(curve, planes_to_point(wins, tag), wins.shape[1], c)
+    tot = _horner_windows(curve, planes_to_point(wins, tag), wins.shape[-1], c)
     return point_to_planes(tot, tag)
 
 
@@ -477,18 +478,20 @@ def _horner_program(tag: str, device: torch.device) -> torch.Tensor:
 
 @_build.counted
 def horner_total(tag, wins, c: int):
-    """Window totals (3R, Wn) int32 -> (3R,) = sum_w 2^(c*w) W_w."""
+    """Window totals (3R, Wn) int32 -> (3R,) = sum_w 2^(c*w) W_w; or a batch
+    of B MSMs' totals (3R, B, Wn) -> (3R, B), in one launch of B blocks."""
     if wins.device.type == "cpu":
         return horner_total_plain(tag, wins, c)
     _require_cuda("horner_total", wins)
     _require_dtype("horner_total", torch.int32, wins)
-    if wins.dim() != 2 or wins.shape[0] != 3 * rows_for(tag):
+    if wins.dim() not in (2, 3) or wins.shape[0] != 3 * rows_for(tag):
         raise ValueError("horner_total: shape mismatch")
-    out = torch.empty((wins.shape[0],), dtype=torch.int32, device=wins.device)
+    B = wins.shape[1] if wins.dim() == 3 else 1
+    out = torch.empty(wins.shape[:-1], dtype=torch.int32, device=wins.device)
     prog = _horner_program(tag, wins.device)
     lib = _build.library()
     horner_total.launches += 1
-    err = lib.kzk_horner_total(wins.data_ptr(), out.data_ptr(), wins.shape[1], c, prog.data_ptr(), prog.numel(),
+    err = lib.kzk_horner_total(wins.data_ptr(), out.data_ptr(), B, wins.shape[-1], c, prog.data_ptr(), prog.numel(),
                                int(tag == "fq2"), _stream(wins))
     _build.check(err, "horner_total")
     return out

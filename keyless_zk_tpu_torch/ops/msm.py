@@ -26,7 +26,9 @@ Sizes chosen for the H100 (not carried over from the TPU tuning):
 
 `msm` serves every n: n <= 128 takes the direct double-and-add, every
 larger n the flat-stream Pippenger (the JAX fused path asserts for
-128 < n < ~400, where its lane count exceeds the chunk).
+128 < n < ~400, where its lane count exceeds the chunk). `msm_batch` runs
+B scalar vectors over one point table through the same pipeline, one
+stream for the batch; `msm` is its B = 1 case.
 """
 
 from __future__ import annotations
@@ -84,8 +86,10 @@ def extract_digits_signed(scalars: torch.Tensor, c: int):
 
 
 def _count_nonzero_digits(scalars: torch.Tensor, c: int) -> int:
-    """Nonzero signed digits across all windows (a host sync on the card)."""
-    keys, _ = extract_digits_signed(scalars, c)
+    """Nonzero signed digits across all windows of (..., n, 16) scalars (a
+    host sync on the card); over a (B, n, 16) batch, the JAX package's
+    `_count_nonzero_digits_batch`."""
+    keys, _ = extract_digits_signed(scalars.reshape(-1, NUM_LIMBS), c)
     return int((keys >= 1).sum())
 
 
@@ -110,12 +114,23 @@ def _msm_small(points_x, points_y, points_inf, scalars, *, curve: JacobianCurve)
     JAX version lifts them to Jacobian and takes the full add: same points,
     other coordinates). On the card a step is two K3 launches and no host
     sync, where the group law in torch takes many small launches and a sync
-    (a key whose B tables hold a few distinct points takes this path)."""
-    n = scalars.shape[0]
+    (a key whose B tables hold a few distinct points takes this path).
+
+    scalars (n, 16) give one point; a batch (B, n, 16) gives B points from
+    one ladder over all B * n lanes (the JAX package runs one ladder per
+    element), each element's lanes summed on their own."""
+    batch = scalars.shape[:-2]
+    n = scalars.shape[-2]
+    flat = scalars.reshape(-1, NUM_LIMBS)
+    lanes = flat.shape[0]
+    reps = lanes // max(n, 1)
     tag = "fq" if curve is G1_CURVE else "fq2"
+    if reps > 1:  # every element's lanes take the same table rows
+        points_x, points_y, points_inf = (
+            t.repeat(reps, *([1] * (t.dim() - 1))) for t in (points_x, points_y, points_inf))
     bit_idx = torch.arange(SCALAR_BITS - 1, -1, -1, device=scalars.device)
-    bits = (scalars.long()[:, bit_idx // LIMB_BITS] >> (bit_idx % LIMB_BITS)) & 1  # (n, 254)
-    acc = curve.infinity((n,), scalars.device)
+    bits = (flat.long()[:, bit_idx // LIMB_BITS] >> (bit_idx % LIMB_BITS)) & 1  # (lanes, 254)
+    acc = curve.infinity((lanes,), scalars.device)
     # before the highest set bit of any scalar every lane stays at the
     # all-zero infinity (doubling it and skipping the add change nothing),
     # so those steps are skipped: witness scalars are mostly 0/1
@@ -123,6 +138,7 @@ def _msm_small(points_x, points_y, points_inf, scalars, *, curve: JacobianCurve)
     for i in range(int(live[0]) if live.numel() else SCALAR_BITS, SCALAR_BITS):
         acc = cuda_curve.curve_dbl(acc, tag)
         acc = curve.select(bits[:, i] == 1, cuda_curve.curve_madd(acc, points_x, points_y, points_inf, tag), acc)
+    acc = JacPoint(*(co.reshape(*batch, n, *co.shape[1:]) for co in acc))
     return tree_reduce_points(curve, acc, n)
 
 
@@ -136,7 +152,8 @@ def msm(
     c: int | None = None,
 ) -> JacPoint:
     """sum_i scalars[i] * P_i. Points affine (Montgomery limbs, int32),
-    scalars standard-form (n, 16) int32 limbs. Returns one Jacobian point.
+    scalars standard-form (n, 16) int32 limbs. Returns one Jacobian point:
+    `msm_batch` of a batch of one.
 
     The points must be distinct with random discrete logs (a deduplicated
     table): the scan takes no P == Q doubling (csrc/ec.cuh madd_core),
@@ -144,38 +161,73 @@ def msm(
     compacted to the next power of two at or above its nonzero count (a
     host sync): keyless witnesses are ~94% bit-valued, whose digits vanish
     in every window but the lowest."""
-    n = scalars.shape[0]
+    out = msm_batch(points_x, points_y, points_inf, scalars[None], curve=curve, c=c)
+    return JacPoint(*(co[0] for co in out))
+
+
+def msm_batch(
+    points_x: torch.Tensor,
+    points_y: torch.Tensor,
+    points_inf: torch.Tensor,
+    scalars: torch.Tensor,
+    *,
+    curve: JacobianCurve,
+    c: int | None = None,
+) -> JacPoint:
+    """B MSMs over ONE point table: scalars (B, n, 16) -> JacPoint with a
+    leading batch axis B (port of keyless_zk_tpu/ops/msm.py `msm_batch`).
+
+    n <= 128 takes `_msm_small`, one ladder for the batch (the JAX package
+    runs `_msm_small` per element). Above it, one flat-stream Pippenger
+    whose bucket ids carry the batch offset (see `_msm_pippenger_fused`):
+    one sort, one compaction and one launch of each of K4-K7 for the whole
+    batch. The stream is compacted to the next power of two at or above
+    the batch's nonzero digit count. Equal points of different elements
+    land in different buckets, so the scan's skipped P == Q doubling stays
+    sound on a deduplicated table."""
+    B, n = scalars.shape[0], scalars.shape[1]
     if n <= _SMALL_N:
         return _msm_small(points_x, points_y, points_inf, scalars, curve=curve)
     tag = "fq" if curve is G1_CURVE else "fq2"
     cw = c or fused_window_bits(n)
-    total = -(-SCALAR_BITS // cw) * n
+    total = B * -(-SCALAR_BITS // cw) * n
     cap = min(_p2(max(_count_nonzero_digits(scalars, cw), 1)), _p2(total))
     v = min(_SCAN_LANES, max(1, -(-cap // _MIN_SLABS)))
     return _msm_pippenger_fused(points_x, points_y, points_inf, scalars, tag=tag, c=cw, v=v, cap=cap)
 
 
 def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c: int, v: int, cap: int) -> JacPoint:
-    """Flat-stream Pippenger (port of msm._msm_pippenger_fused, unbatched).
+    """Flat-stream Pippenger (port of msm._msm_pippenger_fused) over a batch
+    of scalar vectors (B, n, 16) and one point table; returns B points (one
+    point for (n, 16) scalars, the JAX function's `batch=None`).
 
-    Every (window, element) pair maps to a flat bucket id w * NB + digit;
-    zero digits and pads take a sentinel that sorts past the real entries,
-    so one per-window sort groups the buckets and the compaction gathers the
-    rows' real prefixes into the first `cap` stream slots. The stream,
-    padded to whole lanes, runs through K4 in one launch of `v` lanes, which
-    writes every bucket that lies inside a lane into the bucket table; the
-    boundary merge (K5) writes the buckets that cross lanes into the same
-    table. No host sync between K4 and K6.
+    Every (batch element, window, point) maps to a flat bucket id
+    (b * Wn + w) * NB + digit: the rows of the sort are (b, w) pairs, so the
+    batch only lengthens the stream. Zero digits and pads take a sentinel
+    that sorts past the real entries, so one per-row sort groups the
+    buckets and the compaction gathers the rows' real prefixes into the
+    first `cap` stream slots. The stream, padded to whole lanes, runs
+    through K4 in one launch of `v` lanes, which writes every bucket that
+    lies inside a lane into the bucket table; the boundary merge (K5)
+    writes the buckets that cross lanes into the same table; K6 reduces
+    all B * Wn windows at once and K7 runs the B Horner chains in one
+    launch. No host sync between K4 and K7.
     """
     dev = scalars.device
     R = rows_for(tag)
-    n = scalars.shape[0]
+    single = scalars.dim() == 2
+    if single:
+        scalars = scalars[None]
+    B, n = scalars.shape[0], scalars.shape[1]
     V = v
     L = -(-cap // V)
     m = L * V  # stream slots: cap padded to whole lanes
 
-    keys, negs = extract_digits_signed(scalars, c)  # (Wn, n)
-    rows = keys.shape[0]
+    keys, negs = extract_digits_signed(scalars.reshape(B * n, NUM_LIMBS), c)  # (Wn, B * n)
+    Wn = keys.shape[0]
+    rows = B * Wn  # row b * Wn + w: element b, window w
+    keys = keys.reshape(Wn, B, n).transpose(0, 1).reshape(rows, n)
+    negs = negs.reshape(Wn, B, n).transpose(0, 1).reshape(rows, n)
     NB = (1 << (c - 1)) + 1  # digits 0..2^(c-1); bucket 0 has weight 0
     n_seg = rows * NB
 
@@ -233,5 +285,6 @@ def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c
     bpts = torch.stack([hpt, tpt], dim=2).reshape(3 * R, 2 * V).contiguous()
     cuda_msm.boundary_merge(tag, bkeys, bpts, tbl)
 
-    wins = cuda_msm.weighted_bucket_total(tag, tbl.reshape(3 * R, rows, NB))
-    return planes_to_point(cuda_msm.horner_total(tag, wins, c), tag)
+    wins = cuda_msm.weighted_bucket_total(tag, tbl.reshape(3 * R, rows, NB))  # (3R, B * Wn)
+    out = planes_to_point(cuda_msm.horner_total(tag, wins.reshape(3 * R, B, Wn), c), tag)
+    return JacPoint(*(co[0] for co in out)) if single else out

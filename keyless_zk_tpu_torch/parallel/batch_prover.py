@@ -1,0 +1,174 @@
+"""Batched proving: many proofs per device sweep (PyTorch port of
+keyless_zk_tpu/parallel/batch_prover.py).
+
+The reference serializes proving behind a global mutex, one proof at a
+time per process (prover-service/src/request_handler/prover_state.rs:21,
+prover_handler.rs:266-268). Here requests queue up and are proven as a
+batch: the five MSMs of all B witnesses run as one batched MSM each
+(ops/msm.py `msm_batch`: one digit stream over the shared point table,
+one launch of each of K4-K7), the scalar merges as one segment sum per
+table, the decode as one batched inversion per group. The h scalars run
+per element, as in the JAX package, and the blinding tail per proof on
+the host.
+
+Unlike the JAX package, a batch is not padded to `max_batch`: the JAX
+package pads so that XLA compiles one shape, PyTorch compiles nothing,
+and a pad row would cost a whole proof's device work.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
+from ..groth16.prover import (
+    _SPARSE_C,
+    Groth16Prover,
+    PhaseTimer,
+    Proof,
+    _limbs,
+    _sample_fr,
+    blind,
+    check_witness_limbs,
+)
+from ..ops.msm import msm_batch
+
+
+@dataclass
+class _Pending:
+    witness_limbs: np.ndarray
+    event: threading.Event
+    result: object = None
+    error: Exception | None = None
+    info: dict | None = None
+
+
+class BatchProver:
+    """Queue + batch executor around a Groth16Prover.
+
+    prove() blocks the calling thread until its proof is ready; requests
+    arriving while a batch is in flight coalesce into the next batch
+    (max_batch bounds device memory). `batch_sizes` holds the sizes of the
+    batches the worker drained; after a batch, `last_h` its (B, domain, 16)
+    h scalars and, on a CUDA device, `phase_ms` its phase times."""
+
+    def __init__(self, prover: Groth16Prover, max_batch: int = 8):
+        if max_batch < 1:
+            raise ValueError("max_batch must be at least 1")
+        self.prover = prover
+        self.max_batch = max_batch
+        self.phase_ms: dict[str, float] = {}
+        self.last_h: torch.Tensor | None = None
+        self.batch_sizes: collections.deque = collections.deque(maxlen=1024)
+        self._queue: queue.Queue[_Pending | None] = queue.Queue()
+        self._stop = False
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def prove(self, witness_limbs: np.ndarray, timeout: float | None = None, info: dict | None = None) -> Proof:
+        """One proof through the queue. `info`, when given, receives the
+        size of the batch it rode in and that batch's phase ms."""
+        item = _Pending(witness_limbs=witness_limbs, event=threading.Event())
+        self._queue.put(item)
+        if not item.event.wait(timeout):
+            raise TimeoutError("batched prove timed out")
+        if info is not None and item.info is not None:
+            info.update(item.info)
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    def shutdown(self) -> None:
+        """Stop the worker after the batch in flight."""
+        self._stop = True
+        self._queue.put(None)  # wake the worker
+        self._worker.join()
+
+    # ---- worker ----------------------------------------------------------
+
+    def _drain_batch(self) -> list[_Pending]:
+        first = self._queue.get()
+        if first is None:
+            return []
+        batch = [first]
+        while len(batch) < self.max_batch:
+            try:
+                nxt = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if nxt is None:
+                break
+            batch.append(nxt)
+        return batch
+
+    def _run(self) -> None:
+        while not self._stop:
+            batch = self._drain_batch()
+            if not batch:
+                continue
+            self.batch_sizes.append(len(batch))
+            try:
+                proofs = self.prove_batch([b.witness_limbs for b in batch])
+                for item, proof in zip(batch, proofs):
+                    item.result = proof
+            except Exception as e:  # noqa: BLE001 -- propagate to every waiter
+                for item in batch:
+                    item.error = e
+            finally:
+                info = {"batch_size": len(batch), "phase_ms": dict(self.phase_ms)}
+                for item in batch:
+                    item.info = info
+                    item.event.set()
+
+    # ---- batched pipeline --------------------------------------------------
+
+    def prove_batch(self, witnesses: list[np.ndarray]) -> list[Proof]:
+        """Prove B witnesses in one device sweep; r and s are sampled per
+        proof, in order (r then s), as the JAX package samples them."""
+        p = self.prover
+        pk = p.pk
+        wls = [check_witness_limbs(pk, w) for w in witnesses]
+        B = len(wls)
+        if B == 0:
+            return []
+        timer = PhaseTimer(p.device)
+        w = torch.empty((B, *wls[0].shape), dtype=torch.int32, device=p.device)
+        for i, wl in enumerate(wls):  # element by element: no (B, n_vars, 16) host copy
+            w[i] = _limbs(wl, p.device)
+        timer.mark("upload")
+        # merge duplicate-row scalars per table, all B vectors in one segment
+        # sum (the deduped tables hold n_unique rows)
+        merged = [p._merge_scalars(w, m) for m in (p._merge_a, p._merge_b1, p._merge_b2, p._merge_c)]
+        timer.mark("merges")
+        outs = {}
+        for name, table, scalars, curve in (("msm_a", p.points_a, merged[0], G1_CURVE),
+                                            ("msm_b1", p.points_b1, merged[1], G1_CURVE),
+                                            ("msm_b2", p.points_b2, merged[2], G2_CURVE),
+                                            ("msm_c", p.points_c, merged[3], G1_CURVE)):
+            outs[name] = msm_batch(*table, scalars, curve=curve, c=_SPARSE_C)
+            timer.mark(name)
+        del merged
+        h = torch.stack([p._h_scalars(w[i]) for i in range(B)])
+        self.last_h = h
+        timer.mark("h_scalars")
+        outs["msm_h"] = msm_batch(*p.points_h, p._merge_scalars(h, p._merge_h), curve=G1_CURVE)
+        timer.mark("msm_h")
+        g1 = JacPoint(*(torch.cat(cs) for cs in zip(outs["msm_a"], outs["msm_b1"], outs["msm_c"], outs["msm_h"])))
+        g1_pts = G1_CURVE.decode_jacobian(g1)  # 4B points: a, b1, c, h per element
+        b2_pts = G2_CURVE.decode_jacobian(outs["msm_b2"])
+        timer.mark("decode")
+        if timer.timed:
+            self.phase_ms = timer.phase_ms()
+
+        proofs = []
+        for i in range(B):
+            r, s = _sample_fr(), _sample_fr()
+            a_pt, b1_pt, c_pt, h_pt = (g1_pts[k * B + i] for k in range(4))
+            proofs.append(blind(pk, a_pt, b1_pt, b2_pts[i], c_pt, h_pt, r, s))
+        return proofs

@@ -19,18 +19,12 @@ from ..input_processing.circuit_config import CircuitConfig, default_circuit_con
 
 DEFAULT_SETUP_ROOT = os.path.expanduser("~/.local/share/keyless_zk_tpu_torch/setups")
 
-BATCH_NOT_PORTED = (
-    "batch_proving is not ported to keyless_zk_tpu_torch yet (ROADMAP.md Queue 1 item 3: msm_batch and "
-    "BatchProver); set batch_proving: false"
-)
 # Fields the reference's config has (so a config file that sets them is not
 # refused as unknown) but that nothing here implements: any value other
 # than the default is refused by `check_supported`.
 NOT_IMPLEMENTED = {
     "enable_test_provider": "the test OIDC provider is not implemented",
     "enable_federated_jwks": "federated JWK lookup is not implemented",
-    "batch_proving": BATCH_NOT_PORTED,
-    "max_batch": BATCH_NOT_PORTED,
 }
 
 
@@ -49,7 +43,8 @@ class ProverServiceConfig:
     enable_test_provider: bool = False  # NOT_IMPLEMENTED
     enable_federated_jwks: bool = False  # NOT_IMPLEMENTED
     max_committed_epk_bytes: int = 93  # prover_config.rs default
-    # batched proving (the JAX package's parallel/batch_prover.py): NOT_IMPLEMENTED
+    # batched proving: concurrent requests coalesce into batches of at most
+    # max_batch proofs (parallel/batch_prover.py)
     batch_proving: bool = False
     max_batch: int = 8
     # HTTP backpressure: bounded in-flight requests (503 beyond) + socket
@@ -76,9 +71,12 @@ class ProverServiceConfig:
         return config
 
     def check_supported(self) -> None:
-        """Refuse a value other than the default in a NOT_IMPLEMENTED field."""
+        """Refuse a value other than the default in a NOT_IMPLEMENTED field,
+        and a batch of fewer than one proof."""
         bad = [f"{k}: {getattr(self, k)!r} ({why})" for k, why in NOT_IMPLEMENTED.items()
                if getattr(self, k) != self.__dataclass_fields__[k].default]
+        if self.max_batch < 1:
+            bad.append(f"max_batch: {self.max_batch!r} (a batch holds at least one proof)")
         if bad:
             raise ValueError("unsupported config: " + "; ".join(bad))
 

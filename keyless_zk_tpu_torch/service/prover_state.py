@@ -9,13 +9,15 @@ Differences from the reference are deliberate:
   (prover_handler.rs:516-527);
 - the prover is this package's Groth16 prover, its key resident on the
   card (or on `device`); requests queue through a lock the same way the
-  reference's `Mutex<Option<FullProver>>` does (prover_state.rs:21).
+  reference's `Mutex<Option<FullProver>>` does (prover_state.rs:21), or,
+  with `batch_proving`, through a BatchProver (parallel/batch_prover.py),
+  where requests that arrive together are proven as one batch and no
+  lock is taken.
 
-A jax-free copy of keyless_zk_tpu/service/prover_state.py, with three
-differences: batched proving is not ported (`batch_proving: true` is
-refused at start, with the config's other unimplemented settings), a failed witness-engine build is an error (no Python
-witness path is taken instead), and a proof that fails its verification
-answers 500 at once (the device work is not retried).
+A jax-free copy of keyless_zk_tpu/service/prover_state.py, with two
+differences: a failed witness-engine build is an error (no Python witness
+path is taken instead), and a proof that fails its verification answers
+500 at once (the device work is not retried).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..groth16.pairing import verify_groth16
 from ..groth16.prover import Groth16Prover
 from ..groth16.zkey import load_zkey
 from ..input_processing.input_signals import derive_circuit_input_signals
+from ..parallel.batch_prover import BatchProver
 from ..tooling.setup_tool import circuit_checksum, procure
 from ..utils.logging import log_event
 from .bcs import ephemeral_signature_bcs
@@ -67,6 +70,7 @@ class ProverServiceState:
     # prover_state.rs:53-78 `new_for_testing`)
     witness_prog: CompiledWitnessProgram | None = None
     prover: Groth16Prover | None = None
+    batch_prover: BatchProver | None = None  # with config.batch_proving
     vk: dict | None = None
     device: object = devices.DEFAULT
     prove_lock: threading.Lock = field(default_factory=threading.Lock)
@@ -161,6 +165,8 @@ class ProverServiceState:
             pk, self.vk = res.pk, res.vk
         self.prover = Groth16Prover(pk, self.device)
         step("prover_construction")
+        if self.config.batch_proving:
+            self.batch_prover = BatchProver(self.prover, max_batch=self.config.max_batch)
         self.check_pairing_backend()
 
     def check_pairing_backend(self) -> str:
@@ -235,9 +241,17 @@ class ProverServiceState:
             w_np = self.witness_prog.witness_limbs(w64)
 
         with phase("generate_proof"):
-            with self.prove_lock:  # prover_handler.rs:266-268
-                proof = self.prover.prove(w_np)
-                prover_phase_ms = dict(self.prover.phase_ms)
+            if self.batch_prover is not None:
+                # requests that arrive together coalesce into one batch; no
+                # global mutex (the limit of prover_state.rs:21 lifts here)
+                info: dict = {}
+                proof = self.batch_prover.prove(w_np, info=info)
+                prover_phase_ms, batch_size = info["phase_ms"], info["batch_size"]
+            else:
+                with self.prove_lock:  # prover_handler.rs:266-268
+                    proof = self.prover.prove(w_np)
+                    prover_phase_ms = dict(self.prover.phase_ms)
+                batch_size = 1
 
         with phase("deserialize_proof"):
             proof_json = proof.to_json_dict()
@@ -260,5 +274,6 @@ class ProverServiceState:
         self.breakdowns.append({
             "phases_ms": {k: v * 1e3 for k, v in phases.items()},
             "prover_phase_ms": prover_phase_ms,
+            "batch_size": batch_size,
         })
         return resp

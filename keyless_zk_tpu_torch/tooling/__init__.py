@@ -1,2 +1,3 @@
-"""Setup procurement and on-chain VK encoding (jax-free copies of
-keyless_zk_tpu.tooling's setup_tool and onchain_vk)."""
+"""Setup procurement, on-chain VK encoding, the VK diff and the release
+helper (jax-free copies of keyless_zk_tpu.tooling's setup_tool, onchain_vk,
+vk_diff and release_helper)."""

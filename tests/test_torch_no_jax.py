@@ -1,6 +1,6 @@
 """The port runs without JAX: fresh interpreters whose import system refuses
 `jax`, `jaxlib` and the JAX package import every module of
-keyless_zk_tpu_torch, prove on the CPU under a tiny synthetic key (checked
+keyless_zk_tpu_torch (parallel/ and the tools among them), prove on the CPU under a tiny synthetic key (checked
 against its discrete-log oracle), run setup -> prove -> verify on a tiny
 chain circuit (the setup through K3's plain versions), and run the port's
 compiled witness engine: on the gadget circuit of keyless_gadget_circuit.py
@@ -56,6 +56,12 @@ modules = [m.name for m in pkgutil.walk_packages(keyless_zk_tpu_torch.__path__, 
 for name in modules:
     importlib.import_module(name)
 assert len(modules) >= 20, modules
+# parallel/ (its torch.distributed modules import without a process group)
+# and the tools are among them
+assert {"keyless_zk_tpu_torch.parallel", "keyless_zk_tpu_torch.parallel.batch_prover",
+        "keyless_zk_tpu_torch.parallel.distributed", "keyless_zk_tpu_torch.parallel.sharded",
+        "keyless_zk_tpu_torch.parallel.sharded_prover", "keyless_zk_tpu_torch.tooling.vk_diff",
+        "keyless_zk_tpu_torch.tooling.release_helper"} <= set(modules), modules
 
 from keyless_zk_tpu_torch.fields import torch_field as tf
 from keyless_zk_tpu_torch.groth16 import Groth16Prover

@@ -8,12 +8,13 @@ generator handed to both as the same JWT string:
 - `success_response`, BCS, on-chain point compression and Ed25519 are
   byte-equal on seeded inputs;
 - the metrics exposition, the HTTP back-pressure gate, the native-pairing
-  guard, and the config's unimplemented settings (`batch_proving: true`
-  among them) refused;
+  guard, the config's unimplemented settings refused and its batch
+  settings accepted as the JAX package accepts them;
 - the prove pipeline end to end over HTTP on the CPU, with a stand-in
   circuit that takes the keyless inputs and exposes their public-inputs
   hash: 200, a proof that verifies, a training-wheels signature that
-  verifies, the nine phases timed."""
+  verifies, the nine phases timed; and with `batch_proving`, two requests
+  at once through the BatchProver, both 200 and verifying."""
 
 import dataclasses
 import http.client
@@ -207,24 +208,64 @@ def test_config_yaml_matches_jax(tmp_path):
 @pytest.mark.parametrize("line", ["enable_test_provider: true", "enable_federated_jwks: true",
                                   "batch_proving: true", "max_batch: 4"])
 def test_unimplemented_config_field_is_refused(tmp_path, line):
-    """The JAX package accepts these settings; the port refuses any value
-    but the default, since nothing here acts on them."""
+    """The JAX package accepts these settings. The port refuses any value
+    but the default where nothing here acts on it (the test provider,
+    federated JWKs), and takes the batch settings as the JAX config does."""
     p = tmp_path / "cfg.yml"
     p.write_text(line + "\n")
-    JaxConfig.from_yaml(str(p))
-    with pytest.raises(ValueError, match="unsupported config: " + line.split(":")[0]):
+    theirs = JaxConfig.from_yaml(str(p))
+    name = line.split(":")[0]
+    if name in ("batch_proving", "max_batch"):
+        assert getattr(ProverServiceConfig.from_yaml(str(p)), name) == getattr(theirs, name)
+        return
+    with pytest.raises(ValueError, match="unsupported config: " + name):
         ProverServiceConfig.from_yaml(str(p))
 
 
 def test_batch_proving_is_refused_at_start(monkeypatch):
+    """A batch of fewer than one proof is refused at start. With
+    `batch_proving` and a batch size, the start builds a BatchProver around
+    the prover, and two requests at once go through it without the
+    prover's lock: both 200, their proofs and signatures verifying."""
     state = ProverServiceState.new_for_testing(keyless_config=SMALL, device="cpu")
-    state.config.batch_proving = True
+    state.config.batch_proving, state.config.max_batch = True, 0
     built = []
-    monkeypatch.setattr(prover_state, "build_keyless_circuit", lambda kc: built.append(kc))
+    monkeypatch.setattr(prover_state, "build_keyless_circuit", lambda kc: built.append(kc) or stand_in_circuit())
     for persist in (False, True):
-        with pytest.raises(ValueError, match="Queue 1 item 3"):
+        with pytest.raises(ValueError, match="unsupported config: max_batch: 0"):
             state.init_prover_from_native_setup(persist=persist)
     assert not built and state.prover is None
+
+    state.config.max_batch = 4
+    jwts = [make_test_jwt(seed=s, kid=f"k{s}") for s in (6, 7)]
+    for tj in jwts:
+        state.jwk_cache.insert(tj.vi.jwt.payload.iss, RsaJwk(kid=tj.vi.jwt.header.kid, n=tj.rsa_key.n))
+    state.init_prover_from_native_setup()
+    assert state.batch_prover is not None and state.batch_prover.max_batch == 4
+    assert state.batch_prover.prover is state.prover
+    monkeypatch.setattr(state, "prove_lock", None)  # the batched path takes no lock
+    srv = server.start_prover_service(state, 0, host="127.0.0.1")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    results = {}
+
+    def post(i):
+        results[i] = _post_prove(srv.server_address[1], jwts[i])
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        state.batch_prover.shutdown()
+    for i in range(2):
+        _check_prove_response(state, *results[i])
+    sizes = list(state.batch_prover.batch_sizes)  # together, or one after the other
+    assert sizes in ([2], [1, 1])
+    assert [b["batch_size"] for b in list(state.breakdowns)[-2:]] == [max(sizes)] * 2
 
 
 def test_http_backpressure_gate():
@@ -299,24 +340,17 @@ def stand_in_circuit():
     return cs
 
 
-def test_prove_pipeline_over_http(monkeypatch):
-    tj = make_test_jwt(seed=5, kid="k5")
-    state = ProverServiceState.new_for_testing(keyless_config=SMALL, device="cpu")
-    state.jwk_cache.insert(tj.vi.jwt.payload.iss, RsaJwk(kid="k5", n=tj.rsa_key.n))
-    monkeypatch.setattr(prover_state, "build_keyless_circuit", lambda kc: stand_in_circuit())
-    state.init_prover_from_native_setup()
-    assert set(state.startup_s) == {"circuit_build", "witness_program_compile", "setup", "prover_construction"}
-    srv = server.start_prover_service(state, 0, host="127.0.0.1")
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
-    try:
-        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=300)
-        conn.request("POST", "/v0/prove", body=json.dumps(prove_request(tj)).encode())
-        resp = conn.getresponse()
-        payload = json.loads(resp.read())
-    finally:
-        srv.shutdown()
-        srv.server_close()
-    assert resp.status == 200, payload
+def _post_prove(port: int, tj) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/v0/prove", body=json.dumps(prove_request(tj)).encode())
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read())
+
+
+def _check_prove_response(state, status, payload):
+    """200, a proof that verifies against the response's public-inputs hash
+    (and not against another), a training-wheels signature that verifies."""
+    assert status == 200, payload
     pih_bytes = bytes.fromhex(payload["public_inputs_hash"])
     pih = int.from_bytes(pih_bytes, "little")
     a = onchain_vk.decompress_g1(bytes(payload["proof"]["a"]))
@@ -331,4 +365,23 @@ def test_prove_pipeline_over_http(monkeypatch):
         + bytes(payload["proof"]["c"]) + pih_bytes
     sig = bcs.ephemeral_signature_from_bcs(bytes.fromhex(payload["training_wheels_signature"]))
     assert ed25519.verify(state.tw_keypair.pk, msg, sig)
+
+
+def test_prove_pipeline_over_http(monkeypatch):
+    tj = make_test_jwt(seed=5, kid="k5")
+    state = ProverServiceState.new_for_testing(keyless_config=SMALL, device="cpu")
+    state.jwk_cache.insert(tj.vi.jwt.payload.iss, RsaJwk(kid="k5", n=tj.rsa_key.n))
+    monkeypatch.setattr(prover_state, "build_keyless_circuit", lambda kc: stand_in_circuit())
+    state.init_prover_from_native_setup()
+    assert set(state.startup_s) == {"circuit_build", "witness_program_compile", "setup", "prover_construction"}
+    assert state.batch_prover is None
+    srv = server.start_prover_service(state, 0, host="127.0.0.1")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        status, payload = _post_prove(srv.server_address[1], tj)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    _check_prove_response(state, status, payload)
     assert list(state.breakdowns[-1]["phases_ms"]) == list(metrics.PROVE_PHASES)
+    assert state.breakdowns[-1]["batch_size"] == 1
