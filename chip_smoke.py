@@ -9,16 +9,24 @@ Phases, in order; any failure exits non-zero:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compile the CUDA kernels from keyless_zk_tpu_torch/csrc, and
-   print ptxas's registers, spill bytes and stack frame of the K3-K7
-   kernels from build.log;
+   print ptxas's registers, spill bytes and stack frame of K1's mont_pow
+   and the K3-K7 kernels from build.log;
 3. the Montgomery product kernel (K1) against its plain PyTorch version on
-   the card, Fr and Fq at 2^22 elements with the main path's broadcasts,
-   with both times (exact integers: they must be equal);
+   the card, Fr and Fq at 2^22 elements with the main path's broadcasts
+   and Fq at the decode's n = 4 and n = 1 (per launch), with both times
+   (exact integers: they must be equal); then K1's power
+   `mont_pow` (the whole square-and-multiply chain in one launch) against
+   its plain version (one plain product per step), with the lanes 0, 1,
+   p - 1 and R mod p planted: the Fq inverse (e = p - 2) at the proof
+   decode's n = 4 and n = 1, the setup's 2^21 + 37 (the last block
+   partial) and Fr at 2^16, timed, and e = 0, 1 and 13 at each, untimed;
 4. the group-law kernels (K3: complete mixed add, doubling, full add) on
    random points with every edge case planted (either side at infinity,
    both, P == Q, P == -Q), at sizes that leave the last block of 128
    partial (G1 2^20 + 37, G2 2^18 + 61 points), against their plain
-   versions; the mixed add also with one affine point for the whole batch
+   versions (the bounds count the doublings of the P == Q lanes, and the
+   full add's counts no add there); the
+   mixed add also with one affine point for the whole batch
    (nq == 1), planted as P == Q and P == -Q in some lanes, and at
    infinity;
 5. a small proof (synthetic key at domain 2^10) on the card, which runs the
@@ -31,9 +39,11 @@ Phases, in order; any failure exits non-zero:
    with per-phase CUDA-event times, each proof checked against the
    discrete-log oracle, and the launch counts of one proof (every kernel of
    the path > 0; K5 counts each level's launch, at most three per MSM; K6
-   its bucket walk and each sum launch). The warm-up proof keeps the inputs
-   of every call of the MSM kernels (K4-K7) and of the reduction (K8, both
-   bodies) with a distinct signature, and each is then run through the
+   its bucket walk and each sum launch; K1's product at most
+   K1_PROVE_LAUNCHES, its decode's inversions in two launches of
+   `mont_pow`). The warm-up proof keeps the inputs of every call of the
+   MSM kernels (K4-K7), of the reduction (K8, both bodies) and of the
+   decode's `mont_pow` with a distinct signature, and each is then run through the
    kernel and its plain version: equal, with both times (K4's and K5's
    bucket tables, written in place, are compared, K4's with its heads and
    tails; K6's line shows its grids, K7's its microseconds per chained
@@ -120,6 +130,8 @@ KERNELS = [
     # kernel it replaces; the path whose run gives its launches: "prove",
     # "setup", "batch" or "sharded")
     ("mont_mul", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145", "prove"),
+    # K1's product chained through jax_field.mont_pow's fori_loop, in one launch
+    ("mont_pow", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145", "prove"),
     ("curve_madd", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:130", "setup"),
     ("curve_dbl", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:152", "setup"),
     ("curve_add", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:168", "sharded"),
@@ -134,6 +146,14 @@ KERNELS = [
     ("redc", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:115", "prove"),
     ("redc_twiddle", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:122", "prove"),
 ]
+
+# K1 product launches of one proof: the 758 that the proof made (H100 runs)
+# when each Fermat chain was one launch per product, less the decode's two
+# chains of 364 products each (Fq p - 2: 254 squarings, 110 set bits),
+# which `mont_pow` runs in two launches. The 30 are the merges' to_mont,
+# the coefficient chunks' products, the h scalars' four and the decode's
+# products around the inversions.
+K1_PROVE_LAUNCHES = 758 - 2 * 364
 
 R_FIXED, S_FIXED = 0x1234567890ABCDEF1234567890ABCDEF, 0xFEDCBA0987654321FEDCBA0987654321
 TOXIC = {"tau": 999, "alpha": 3, "beta": 4, "gamma": 5, "delta": 6}
@@ -190,12 +210,15 @@ def check(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 1, warm: bool = True) -> tuple[object, float]:
-    """Run fn reps times between CUDA events, after one untimed run if
-    `warm`; (last result, ms per run)."""
+    """Run fn reps times between CUDA events, after two untimed runs if
+    `warm`; (last result, ms per run). The warm runs hold a result across
+    a call as the timed loop does, so the allocator holds the two output
+    buffers that the loop alternates between before the clock starts."""
     import torch
 
     if warm:
-        fn()
+        out = fn()
+        out = fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -206,6 +229,18 @@ def cuda_ms(fn, reps: int = 1, warm: bool = True) -> tuple[object, float]:
     return out, start.elapsed_time(end) / reps
 
 
+def spin_up(fn, seconds: float = 1.0) -> None:
+    """Run fn untimed for about `seconds` of device time, so that the
+    timings after it do not start on a card that has sat idle."""
+    import torch
+
+    start = time.monotonic()
+    while time.monotonic() - start < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the main path's kernel wrappers to their plain versions on the
@@ -214,7 +249,7 @@ def plain_kernels():
 
     saved = {}
     swaps = {
-        cuda_field: {"mont_mul": cuda_field.mont_mul_plain},
+        cuda_field: {"mont_mul": cuda_field.mont_mul_plain, "mont_pow": cuda_field.mont_pow_plain},
         cuda_msm: {
             "window_scan": cuda_msm.window_scan_plain,
             "boundary_merge": cuda_msm.boundary_merge_plain,
@@ -297,6 +332,8 @@ def mont_mul_checks(dev, records: dict) -> None:
     n = 1 << 22
     for spec in (FR, FQ):
         a = rand_field(gen, n, spec, dev)
+        if spec == FR:  # the first timed launches: bring the card off its idle clocks first
+            spin_up(lambda: cuda_field.mont_mul(a, a, spec))
         for label, b in (
             ("b full", rand_field(gen, n, spec, dev)),
             ("b (2^20 rows) over (4, 2^20)", rand_field(gen, 1 << 20, spec, dev)),
@@ -317,6 +354,85 @@ def mont_mul_checks(dev, records: dict) -> None:
             want, plain_ms = cuda_ms(plain)
             record(records, "mont_mul", max_abs_err(got.reshape(-1, 16), want), ms, plain_ms,
                    f"{spec.name} 2^22, {label}", moved=nbytes(a_in, b, got), imad=n * FQ_MUL_IMAD)
+
+    # K1 at the decode's shapes: the products around its inversions (and,
+    # before mont_pow, each step of their chains), one launch each
+    for n in (4, 1):
+        a, b = rand_field(gen, n, FQ, dev), rand_field(gen, n, FQ, dev)
+        got, ms = cuda_ms(lambda: cuda_field.mont_mul(a, b, FQ), reps=100)
+        want, plain_ms = cuda_ms(lambda: cuda_field.mont_mul_plain(a, b, FQ), reps=100)
+        record(records, "mont_mul", max_abs_err(got, want), ms, plain_ms, f"fq n={n} (the decode's), per launch",
+               moved=nbytes(a, b, got), imad=n * FQ_MUL_IMAD)
+
+
+def pow_steps(e: int) -> tuple[int, int]:
+    """(squarings, products) of the kernel's chain for exponent e: fixed
+    4-bit windows from the top, a table of x^2 .. x^15 (14 products), then
+    four squarings per window below the top one and a product for each
+    nonzero one (csrc/mont_mul.cu `mont_pow_kernel`)."""
+    nwin = (max(e.bit_length(), 1) + 3) // 4
+    return 4 * (nwin - 1), 14 + sum(1 for w in range(nwin - 1) if (e >> (4 * w)) & 15)
+
+
+def pow_imad(n: int, e: int) -> float:
+    """The multiply-adds of n chains of exponent e, as the kernel runs them."""
+    return float(n) * sum(pow_steps(e)) * FQ_MUL_IMAD
+
+
+def pow_compare(records, args, note) -> None:
+    """One mont_pow input through the kernel and its plain version, timed:
+    bytes 128 per element (a row in, a row out)."""
+    from keyless_zk_tpu_torch.ops import cuda_field
+
+    a, e, _ = args
+    n = a.numel() // 16
+    sqr, mul = pow_steps(e)
+    compare(records, "mont_pow", cuda_field.mont_pow, cuda_field.mont_pow_plain, args,
+            f"{note}, {sqr} squarings and {mul} products per element", imad=pow_imad(n, e), reps=5)
+
+
+def mont_pow_checks(dev, records: dict) -> None:
+    """K1's mont_pow against its plain version, lanes 0, 1, p - 1 and R mod
+    p planted: the Fq inverse at the decode's n = 4 and n = 1, the setup's
+    2^21 + 37 and Fr 2^16, timed; e = 0, 1 and 13 untimed."""
+    import torch
+
+    from keyless_zk_tpu_torch.fields.torch_field import FQ, FR, encode_ints
+    from keyless_zk_tpu_torch.ops import cuda_field
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    for spec, n, label in ((FQ, 4, "decode's G1 z's"), (FQ, 1, "decode's Fq2 norm"),
+                           (FQ, (1 << 21) + 37, "a setup pass"), (FR, 1 << 16, "Fr")):
+        a = rand_field(gen, n, spec, dev)
+        edge = encode_ints([0, 1, spec.p - 1, spec.r_mod_p], spec, device=dev)
+        k = min(n, 4)
+        a[:k] = edge[:k] if n >= 4 else edge[[1]]  # n = 1: the Montgomery 1 is R mod p; plant raw 1
+        for e in (spec.p - 2, 0, 1, 13):
+            args = (a, e, spec)
+            if e == spec.p - 2:
+                pow_compare(records, args, f"{spec.name} n={n} ({label}), e = p - 2")
+                continue
+            got = cuda_field.mont_pow(*args)
+            with plain_kernels():
+                want = cuda_field.mont_pow_plain(*args)
+            planted(records, "mont_pow", max_abs_err(got, want), f"{spec.name} n={n}, e = {e}, lanes 0, 1, p - 1, R")
+        if n == 1:  # the other planted lanes one at a time
+            for v in edge:
+                x = v[None].contiguous()
+                got = cuda_field.mont_pow(x, spec.p - 2, spec)
+                with plain_kernels():
+                    want = cuda_field.mont_pow_plain(x, spec.p - 2, spec)
+                planted(records, "mont_pow", max_abs_err(got, want), f"{spec.name} n=1, e = p - 2, one planted lane")
+
+
+def decode_pow_checks(store: dict, records: dict) -> None:
+    """The decode's captured mont_pow calls (the G1 batch's z's and the G2
+    point's Fq2 norm) through the kernel and its plain version."""
+    check(sorted(sig[1] for sig in store) == [(1, 16), (4, 16)],
+          f"the decode's mont_pow calls were not captured: {sorted(store)}")
+    for sig, args in store.items():
+        pow_compare(records, args, f"decode, {args[2].name} {tuple(args[0].shape)}")
 
 
 # ---- K3 on random points with the edge cases planted ------------------------------
@@ -377,6 +493,30 @@ def k3_inputs(tag: str, n: int, dev):
             broadcast)
 
 
+def doubling_lanes(p, q, tag: str) -> int:
+    """The lanes of a full add p + q that take its doubling: P == Q as
+    points, neither at infinity (plain field ops)."""
+    from keyless_zk_tpu_torch.ops.cuda_msm import curve_for
+
+    f = curve_for(tag).ops
+
+    def eq(a, b):
+        return (a == b).reshape(a.shape[0], -1).all(1)
+
+    with plain_kernels():
+        z1z1, z2z2 = f.sqr(p.z), f.sqr(q.z)
+        same_x = eq(f.mul(p.x, z2z2), f.mul(q.x, z1z1))
+        same_y = eq(f.mul(f.mul(p.y, q.z), z2z2), f.mul(f.mul(q.y, p.z), z1z1))
+    return int((same_x & same_y & ~f.is_zero(p.z) & ~f.is_zero(q.z)).sum())
+
+
+def add_imad(p, q, tag: str) -> float:
+    """The multiply-adds of a full add of these batches: the doubling in the
+    lanes where P == Q, the add in the others (each lane needs one of them)."""
+    n_dbl = doubling_lanes(p, q, tag)
+    return group_imad("add", tag, p.x.shape[0] - n_dbl) + group_imad("dbl", tag, n_dbl)
+
+
 def k3_checks(dev, records: dict) -> None:
     """madd, dbl and add on random batches with the edge cases, G1 2^20 + 37
     and G2 2^18 + 61 points (the last block of 128 is partial), and madd
@@ -394,8 +534,10 @@ def k3_checks(dev, records: dict) -> None:
                 imad=group_imad("madd", tag, n) + group_imad("dbl_affine", tag, n_dbl_affine))
         compare(records, "curve_dbl", cuda_curve.curve_dbl, cuda_curve.dbl_plain, (p, tag),
                 f"{tag} n={n}", imad=group_imad("dbl", tag, n))
+        n_dbl = doubling_lanes(p, q, tag)
+        check(n_dbl == n_dbl_affine, f"K3 add: {n_dbl} lanes double, {n_dbl_affine} were planted")
         compare(records, "curve_add", cuda_curve.curve_add, cuda_curve.add_plain, (p, q, tag),
-                f"{tag} n={n}, edge cases planted", imad=group_imad("add", tag, n))
+                f"{tag} n={n}, edge cases planted, {n_dbl} doubling lanes", imad=add_imad(p, q, tag))
         for label, (bp, q1) in broadcast.items():
             got = cuda_curve.curve_madd(bp, *q1, tag)
             with plain_kernels():
@@ -844,11 +986,19 @@ def ntt_plans(prover, w, dev) -> None:
         f"{len(matmul.factors)} passes per transform")
 
 
+def check_k1_launches(counts: dict, path: str) -> None:
+    """K1 on one proof: the decode's two inversions as two launches of
+    mont_pow, and at most K1_PROVE_LAUNCHES launches of the product."""
+    check(counts.get("mont_pow", 0) == 2, f"{path}: {counts.get('mont_pow', 0)} mont_pow launches, not 2")
+    check(counts["mont_mul"] <= K1_PROVE_LAUNCHES,
+          f"{path}: {counts['mont_mul']} K1 product launches, more than {K1_PROVE_LAUNCHES}")
+
+
 def full_width(dev, counts_out: dict, records: dict) -> None:
     import torch
 
     from keyless_zk_tpu_torch.groth16.prover import Groth16Prover
-    from keyless_zk_tpu_torch.ops import _build, cuda_msm, cuda_redc, testgen
+    from keyless_zk_tpu_torch.ops import _build, cuda_field, cuda_msm, cuda_redc, testgen
 
     t0 = time.perf_counter()
     key = testgen.synthetic_key(2026, device=dev, **testgen.KEYLESS_SHAPE)
@@ -863,13 +1013,17 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
 
     msm_calls: dict = {}
     redc_calls: dict = {}
-    with capture_calls(cuda_msm, MSM_KERNELS, msm_calls), capture_calls(cuda_redc, REDC_KERNELS, redc_calls):
-        prove_checked(prover, key, R_FIXED, S_FIXED, "full proof warm-up (K4-K8 inputs captured)")
+    pow_calls: dict = {}
+    with capture_calls(cuda_msm, MSM_KERNELS, msm_calls), capture_calls(cuda_redc, REDC_KERNELS, redc_calls), \
+            capture_calls(cuda_field, ("mont_pow",), pow_calls):
+        prove_checked(prover, key, R_FIXED, S_FIXED, "full proof warm-up (K4-K8 and mont_pow inputs captured)")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
     msm_kernel_checks(msm_calls, records, dev)
     del msm_calls
     redc_kernel_checks(redc_calls, records)
     del redc_calls
+    decode_pow_checks(pow_calls, records)
+    del pow_calls
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -889,6 +1043,7 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
         if path == "prove":
             check(counts_out.get(name, 0) > 0, f"kernel {name} was not launched by the prove path")
     check(counts_out["boundary_merge"] <= 3 * 5, "K5 took more than three launches per MSM")
+    check_k1_launches(counts_out, "the full-width proof")
 
     w = torch.from_numpy(key.witness.astype("int32")).to(dev)
     got = prover._h_scalars(w)
@@ -1054,7 +1209,7 @@ def sharded_checks(res, prover, witness, proof, public: list, dev, records: dict
         for sig, args in calls.items():
             tag = args[-1]
             compare(records, "curve_add", cuda_curve.curve_add, cuda_curve.add_plain, args,
-                    f"sharded combine, {tag} n={args[0].x.shape[0]}", imad=group_imad("add", tag, args[0].x.shape[0]))
+                    f"sharded combine, {tag} n={args[0].x.shape[0]}", imad=add_imad(*args))
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(53)
@@ -1390,6 +1545,7 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash) -> None:
     for name, _, _, path in KERNELS:
         if path == "prove":
             check(prove_counts.get(name, 0) > 0, f"kernel {name} was not launched by the keyless proof")
+    check_k1_launches(prove_counts, "the keyless proof")
     log_eval_ab("keyless path", prover, w)
 
 
@@ -1730,8 +1886,8 @@ def timed_proof(prover, witness, r, s):
     return proof, (time.perf_counter() - t0) * 1e3
 
 
-PTXAS_KERNELS = ("madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel", "merge_tile_kernel",
-                 "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
+PTXAS_KERNELS = ("mont_pow_kernel", "madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel",
+                 "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
 
 
 def main() -> int:
@@ -1764,10 +1920,11 @@ def main() -> int:
         _build.library()
         log(f"build: {secs:.1f} s -> {lib}")
         report = _build.ptxas_report((lib.parent / "build.log").read_text(), PTXAS_KERNELS)
-        log("ptxas (K3-K7): " + json.dumps(report))
+        log("ptxas (K1 mont_pow, K3-K7): " + json.dumps(report))
         check(all(any(k.startswith(name + " ") for k in report) for name in PTXAS_KERNELS),
-              "build.log lacks the ptxas report of a K3-K7 kernel")
+              "build.log lacks the ptxas report of a K1 mont_pow or K3-K7 kernel")
         mont_mul_checks(dev, records)
+        mont_pow_checks(dev, records)
         k3_checks(dev, records)
         small_proof(dev)
         full_width(dev, counts["prove"], records)

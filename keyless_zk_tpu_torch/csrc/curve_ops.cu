@@ -37,10 +37,13 @@
 //
 // Bound on the H100: 384 (G1) or 768 (G2) bytes of points in and out per
 // doubling against 7 (G1) or 16 (G2) Fq products of 264 multiply-adds; a
-// mixed add moves the same bytes for 11 or 29 products. G1's doubling is
-// bound by bytes, the rest by the products; each runs at 40-50% of its
-// bound, held back by the latency of the products' carry chains at the
-// occupancy their registers allow (PERF.md).
+// mixed add moves the same bytes for 11 or 29 products, a full add 576
+// or 1152 bytes for 16 or 43. G1's doubling is bound by bytes, the rest by
+// the products; each runs at 30-50% of its bound, held back by the
+// latency of the products' carry chains at the occupancy their registers
+// allow (one product is most of K1's 760 SASS instructions for its 264
+// multiply-adds; PERF.md). The full add no longer branches to a doubling
+// (`add_complete` below).
 
 #include <cuda_runtime.h>
 
@@ -80,6 +83,10 @@ __device__ __forceinline__ Fq2K3 sub(const Fq2K3& a, const Fq2K3& b) {
   return {kzk::sub(a.c0, b.c0), kzk::sub(a.c1, b.c1)};
 }
 __device__ __forceinline__ bool is_zero(const Fq2K3& a) { return kzk::is_zero(a.c0) && kzk::is_zero(a.c1); }
+__device__ __forceinline__ FqK3 select(bool c, const FqK3& a, const FqK3& b) { return {kzk::select(c, a.v, b.v)}; }
+__device__ __forceinline__ Fq2K3 select(bool c, const Fq2K3& a, const Fq2K3& b) {
+  return {kzk::select(c, a.c0, b.c0), kzk::select(c, a.c1, b.c1)};
+}
 
 // field.cuh's Fq2 `mul` (Karatsuba, 3 Fq products) and `sqr` (2)
 __device__ __forceinline__ Fq2K3 gmul(const Fq2K3& a, const Fq2K3& b) {
@@ -124,14 +131,16 @@ constexpr int THREADS = 128;
 // `k3_budget_*`, PERF.md): G1's mixed add runs faster unbound (146
 // registers) than held to 128 with spills; G2's runs faster held to 128
 // with spills (four blocks) than to 96 (five), 168 (three) or unbound at
-// 255 (two); the doublings need no bound.
+// 255 (two); the doublings need no bound. The full add runs fastest at
+// three blocks for both fields (G1 168 registers, G2 168 with spills),
+// against two (G1 175, G2 255 and spills) and four (128, spills).
 template <class F>
 struct Budget {
-  static constexpr int madd = 2, dbl = 4, add = 2;
+  static constexpr int madd = 2, dbl = 4, add = 3;
 };
 template <>
 struct Budget<G2> {
-  static constexpr int madd = 4, dbl = 2, add = 2;
+  static constexpr int madd = 4, dbl = 2, add = 3;
 };
 
 // ---- rows of 16-bit limbs held in int32, two limbs to a word ---------------------
@@ -204,6 +213,54 @@ dbl_kernel(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay, const
   store_point<F>(ox, oy, oz, i, dbl_core(load_point<F>(ax, ay, az, i)));
 }
 
+// The complete Jacobian add, P + Q: add-2007-bl, and dbl-2009-l of P in
+// the lanes where P == Q, with ec.cuh `add_core`'s values and order of
+// selects. `add_core` computes the add in every lane and then branches to
+// `dbl_core`, so a warp with one doubling lane paid for both: 16 + 7 Fq
+// products (G1), 43 + 16 (G2). Here the doubling runs inside the add's own
+// products: once the first eight products have decided P == Q (h == 0 and
+// r == 0), each of the last eight takes its operands per lane, the add's
+// or the doubling's, so every lane makes the add's 16 products and no lane
+// branches. The doubling's seven products fit those eight in the order of
+// their dependencies (each squaring of the doubling in a squaring or a
+// product of the add, so G2 makes no more Fq products either). Every
+// value is canonical, so the doubling's result equals dbl_core's bit for bit.
+template <class F>
+__device__ __forceinline__ Jac<F> add_complete(const Jac<F>& p, const Jac<F>& q) {
+  const F z1z1 = gsqr(p.z);
+  const F z2z2 = gsqr(q.z);
+  const F u1 = gmul(p.x, z2z2);
+  const F u2 = gmul(q.x, z1z1);
+  const F s1 = gmul(gmul(p.y, q.z), z2z2);
+  const F s2 = gmul(gmul(q.y, p.z), z1z1);
+  const F h = sub(u2, u1);
+  const F rr = sub(s2, s1);
+  const bool p_inf = is_zero(p.z), q_inf = is_zero(q.z);
+  const bool d = is_zero(h) && !p_inf && !q_inf && is_zero(rr);  // P == Q: double P
+  const F r2 = add(rr, rr);
+  // the last eight products, "doubling | add"
+  const F m1 = gsqr(select(d, p.x, add(p.z, q.z)));  // A = x1^2 | (z1 + z2)^2
+  const F m2 = gsqr(select(d, p.y, add(h, h)));      // B = y1^2 | i4 = (2h)^2
+  const F m3 = gsqr(select(d, m2, r2));              // C = B^2 | r2^2
+  const F xb = add(p.x, m2);
+  const F m4 = gmul(select(d, xb, h), select(d, xb, m2));  // (x1 + B)^2 | j = h i4
+  const F e3 = add(add(m1, m1), m1);                       // E = 3A
+  const F m5 = gmul(select(d, e3, u1), select(d, e3, m2));  // E^2 | v = u1 i4
+  const F zz = sub(sub(m1, z1z1), z2z2);
+  const F m6 = gmul(select(d, add(p.y, p.y), zz), select(d, p.z, h));  // z3 = 2 y1 z1 | z3 = zz h
+  const F m7 = gmul(s1, m4);                                            // - | s1 j
+  const F t = sub(sub(m4, m1), m3);
+  const F dd = add(t, t);                                                // D
+  const F x3 = select(d, sub(m5, add(dd, dd)), sub(sub(m3, m4), add(m5, m5)));
+  const F m8 = gmul(select(d, e3, r2), select(d, sub(dd, x3), sub(m5, x3)));  // E (D - x3) | r2 (v - x3)
+  const F c2 = add(m3, m3), c4 = add(c2, c2);
+  const F y3 = sub(m8, select(d, add(c4, c4), add(m7, m7)));  // - 8C | - 2 s1 j
+  Jac<F> out = {x3, y3, m6};
+  if (p_inf) out = q;
+  if (q_inf) out = p;
+  return out;
+}
+
 template <class F>
 __global__ void __launch_bounds__(THREADS, Budget<F>::add)
 add_kernel(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay, const int32_t* __restrict__ az,
@@ -211,7 +268,7 @@ add_kernel(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay, const
            int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
   const long long i = blockIdx.x * (long long)THREADS + threadIdx.x;
   if (i >= n) return;
-  store_point<F>(ox, oy, oz, i, add_core(load_point<F>(ax, ay, az, i), load_point<F>(bx, by, bz, i)));
+  store_point<F>(ox, oy, oz, i, add_complete(load_point<F>(ax, ay, az, i), load_point<F>(bx, by, bz, i)));
 }
 
 // Launch `kernel` over n points, one per thread

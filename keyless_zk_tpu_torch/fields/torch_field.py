@@ -17,9 +17,10 @@ limb either generates a carry, kills one, or propagates its carry-in; the
 carry into limb i is the generate bit of the nearest non-propagating limb
 below i, found with one cummax over limb positions.
 
-`mont_mul` dispatches through ops/cuda_field.py: a CUDA tensor launches the
-hand-written kernel, a CPU tensor takes its plain version (`mont_mul_plain`
-there, the port of `_mont_mul_xla`, built from the helpers below).
+`mont_mul` and `mont_pow` dispatch through ops/cuda_field.py: a CUDA tensor
+launches the hand-written kernel, a CPU tensor takes its plain version
+(`mont_mul_plain` there, the port of `_mont_mul_xla`, built from the helpers
+below, and `mont_pow_plain`, a loop over it).
 """
 
 from __future__ import annotations
@@ -322,15 +323,12 @@ def from_mont(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
 def mont_pow(a: torch.Tensor, e: int, spec: FieldSpec) -> torch.Tensor:
     """a^e with a in Montgomery form (output Montgomery), e a host int.
 
-    MSB-first square-and-multiply; the exponent is a host int, so a clear
-    bit skips its multiply (the JAX version computes and discards it)."""
-    nbits = max(e.bit_length(), 1)
-    acc = consts(spec, spec.r_mod_p, a.shape[:-1], a.device).contiguous()
-    for i in range(nbits):
-        acc = mont_mul(acc, acc, spec)
-        if (e >> (nbits - 1 - i)) & 1:
-            acc = mont_mul(acc, a, spec)
-    return acc
+    MSB-first square-and-multiply, dispatched through ops/cuda_field.py: a
+    CUDA tensor runs the whole chain in one launch of `kzk_mont_pow`, a CPU
+    tensor takes `mont_pow_plain` (one plain product per step)."""
+    from ..ops.cuda_field import mont_pow as kernel_mont_pow
+
+    return kernel_mont_pow(a.contiguous(), e, spec)
 
 
 def mont_inv(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:

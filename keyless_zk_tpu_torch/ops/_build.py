@@ -95,7 +95,8 @@ def build(csrc: Path = CSRC) -> tuple[Path, float]:
     logs = "".join((tmp / (src.stem + ".log")).read_text() for src, _, _ in procs)
     (tmp / "build.log").write_text(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{logs[-8000:]}")
+        errors = "\n".join(line for line in logs.splitlines() if "error" in line or "fatal" in line)
+        raise RuntimeError(f"nvcc failed on {failed}:\n{errors[-6000:]}\n--- the log's tail:\n{logs[-2000:]}")
     subprocess.run(
         [nvcc, ARCH, "-shared", "-o", str(tmp / lib.name), *map(str, sorted(tmp.glob("*.o")))],
         check=True,
@@ -121,6 +122,7 @@ def load(path: Path) -> ctypes.CDLL:
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     signatures = {
         "kzk_mont_mul": [P, P, P, LL, LL, I, P],
+        "kzk_mont_pow": [P, P, LL, ctypes.POINTER(ctypes.c_uint32), I, I, P],
         "kzk_window_scan": [P, P, P, P, P, LL, P, P, P, P, LL, LL, I, P],
         "kzk_boundary_merge_level": [P, P, LL, P, P, P, LL, I, I, P],
         "kzk_bucket_walk": [P, P, LL, LL, LL, I, I, P],
@@ -151,9 +153,15 @@ def mangles(name: str, mangled: str) -> bool:
     return f"{len(name)}{name}" in mangled
 
 
+def field_suffix(mangled: str) -> str:
+    """The field a kernel instance was built for, from its mangled name:
+    " g2" (Fq2), " fr" (Fr) or " g1" (Fq)."""
+    return " g2" if "Fq2" in mangled else " fr" if "FrMod" in mangled else " g1"
+
+
 def ptxas_report(log_text: str, kernels) -> dict:
     """Registers, spill bytes and stack frame of each kernel of `kernels`,
-    per field ("<name> g1" / "<name> g2"), from nvcc's -Xptxas -v output
+    per field ("<name> g1" / "<name> g2" / "<name> fr"), from nvcc's -Xptxas -v output
     (build.log), with the 128-thread blocks per SM that its registers allow
     (K3's blocks are 128 threads)."""
     out: dict = {}
@@ -164,7 +172,7 @@ def ptxas_report(log_text: str, kernels) -> dict:
         elif "Function properties for" in line:
             props = line.rsplit(" ", 1)[-1].strip()
         elif entry and any(mangles(k, entry) for k in kernels):
-            key = next(k for k in kernels if mangles(k, entry)) + (" g2" if "Fq2" in entry else " g1")
+            key = next(k for k in kernels if mangles(k, entry)) + field_suffix(entry)
             rec = out.setdefault(key, {})
             if "bytes stack frame" in line and props == entry:
                 words = line.replace(",", "").split()

@@ -30,7 +30,18 @@ under build/ and built beside the shipped library:
   ec.cuh's own field type, no register budget: the port's first K3
   kernels;
 - `k3_budget_low`, `k3_budget_high`: K3's register budgets (blocks of 128
-  per SM that ptxas must fit) below and above the shipped ones.
+  per SM that ptxas must fit) below and above the shipped ones;
+- `k3_add_budget_2`, `k3_add_budget_4`: the full add's budget alone at
+  two blocks (before) and four, G1 and G2;
+- `k3_add_branch`: the full add as ec.cuh's `add_core` (the add in every
+  lane, then a branch to `dbl_core` in the lanes where P == Q: the kernel
+  before the doubling ran inside the add's products);
+- `k3_add_any`: `add_core` with the doubling taken once per warp behind
+  `__any_sync`, every lane of such a warp computing it;
+- `pow_bits`: K1's `mont_pow` bit by bit (a squaring per bit and a
+  product per set bit, the element and accumulator in registers) instead
+  of by fixed 4-bit windows (a 16-entry table of x^k per thread in local
+  memory, 14 products, then per window four squarings and one product).
 
 Each variant's outputs must equal the shipped library's, bit for bit, on
 the same inputs (chip_smoke.py holds the shipped kernels to their plain
@@ -48,10 +59,13 @@ library K6 is also timed at several lane counts per window, and K5 at tiles
 of 128, 256 and 512 entries (G1) on boundary sequences of the main path's
 lengths with one key over most of the sequence, as the keyless witness
 gives. K3 runs at the 2^21 setup ladder's step shapes (the doubling, and
-the mixed add of the broadcast generator: G1 2^21 points, G2 2,097,150)
-and its mixed add with n affine points (G1 2^20, G2 2^18); and ten steps
+the mixed add of the broadcast generator: G1 2^21 points, G2 2,097,150),
+its mixed add with n affine points (G1 2^20, G2 2^18), its full add on
+G1 2^20 + 37 and G2 2^18 + 61 points with P == Q in one lane of 64 (as
+chip_smoke.py plants it) and at n = 1 (the sharded MSM's combine); and ten steps
 of the small-n MSM (a doubling and a mixed add, G2, n = 3, as the chain
-key's B2 table gives `_msm_small`). Per variant the
+key's B2 table gives `_msm_small`). K1's `mont_pow` runs the Fq inverse
+(e = p - 2) at the decode's n = 4 and n = 1 and the setup's 2^21. Per variant the
 script prints the build seconds, ptxas's registers and spills and the SASS
 instruction count of each kernel.
 """
@@ -70,11 +84,11 @@ import torch
 
 from ..curves import ref_curve
 from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
-from ..fields.torch_field import FR
+from ..fields.torch_field import FQ, FR
 from ..ops import _build, cuda_curve, cuda_field, cuda_msm, msm, testgen
 
-KERNELS = ("mont_mul_kernel", "madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel", "merge_tile_kernel",
-           "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
+KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel",
+           "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
 
 _GMUL = "template <class M>\n__device__ __noinline__ Fp<M> gmul("
 _MUL = "__device__ __forceinline__ Fp<M> mul(const Fp<M>& a, const Fp<M>& b) {\n"
@@ -245,6 +259,65 @@ def _k3_budget(g1: tuple, g2: tuple):
     return [("curve_ops.cu", edit)]
 
 
+_ADD_CALL = "store_point<F>(ox, oy, oz, i, add_complete("
+_ADD_KERNEL = "template <class F>\n__global__ void __launch_bounds__(THREADS, Budget<F>::add)\nadd_kernel("
+_ADD_ANY = """// ec.cuh add_core, its doubling once per warp behind __any_sync
+template <class F>
+__device__ __forceinline__ Jac<F> add_any(const Jac<F>& p, const Jac<F>& q) {
+  F z1z1 = gsqr(p.z);
+  F z2z2 = gsqr(q.z);
+  F u1 = gmul(p.x, z2z2);
+  F u2 = gmul(q.x, z1z1);
+  F s1 = gmul(gmul(p.y, q.z), z2z2);
+  F s2 = gmul(gmul(q.y, p.z), z1z1);
+  F h = sub(u2, u1);
+  F rr = sub(s2, s1);
+  F r2 = add(rr, rr);
+  F i4 = gsqr(add(h, h));
+  F j = gmul(h, i4);
+  F v = gmul(u1, i4);
+  F x3 = sub(sub(gsqr(r2), j), add(v, v));
+  F s1j = gmul(s1, j);
+  F y3 = sub(gmul(r2, sub(v, x3)), add(s1j, s1j));
+  F zz = sub(sub(gsqr(add(p.z, q.z)), z1z1), z2z2);
+  F z3 = gmul(zz, h);
+  Jac<F> out = {x3, y3, z3};
+  bool p_inf = is_zero(p.z);
+  bool q_inf = is_zero(q.z);
+  bool d = is_zero(h) && !p_inf && !q_inf && is_zero(rr);
+  if (__any_sync(__activemask(), d)) {
+    Jac<F> pd = dbl_core(p);
+    if (d) out = pd;
+  }
+  if (p_inf) out = q;
+  if (q_inf) out = p;
+  return out;
+}
+
+"""
+
+
+def _pow_bits(src: str) -> str:
+    """mont_pow_kernel's chain bit by bit (MSB-first square and multiply)."""
+    head = ("__global__ void mont_pow_kernel(const int4* __restrict__ a, int4* __restrict__ out, long long n, "
+            "Exponent e) {\n")
+    body = """  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t w[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) w[k] = e.w[k];
+  const Fp<M> x = load_row<M>(a + 4 * i);
+  Fp<M> acc = fp_one<M>();
+#pragma unroll 1
+  for (int b = e.nbits - 1; b >= 0; b--) {
+    acc = mul(acc, acc);
+    if ((exp_digit(w, b >> 2) >> (b & 3)) & 1u) acc = mul(acc, x);
+  }
+  store_row(out + 4 * i, acc);
+"""
+    return _function_body(head, body)(src)
+
+
 # name -> ([(source file, edit)], applied in order; the kernels it concerns: None for all)
 VARIANTS = {
     "shipped": ([], None),
@@ -260,6 +333,12 @@ VARIANTS = {
                  + [("curve_ops.cu", _swap("using G1 = FqK3;", "using G1 = Fp<FqMod>;"))], ("K3",)),
     "k3_budget_low": (_k3_budget((1, 2, 1), (3, 1, 1)), ("K3",)),
     "k3_budget_high": (_k3_budget((3, 6, 3), (5, 3, 2)), ("K3",)),
+    "k3_add_budget_2": (_k3_budget((2, 4, 2), (4, 2, 2)), ("K3",)),
+    "k3_add_budget_4": (_k3_budget((2, 4, 4), (4, 2, 4)), ("K3",)),
+    "k3_add_branch": ([("curve_ops.cu", _swap(_ADD_CALL, _ADD_CALL.replace("add_complete", "add_core")))], ("K3",)),
+    "k3_add_any": ([("curve_ops.cu", _swap(_ADD_KERNEL, _ADD_ANY + _ADD_KERNEL)),
+                    ("curve_ops.cu", _swap(_ADD_CALL, _ADD_CALL.replace("add_complete", "add_any")))], ("K3",)),
+    "pow_bits": ([("mont_mul.cu", _pow_bits)], ("K1",)),
 }
 
 
@@ -296,12 +375,13 @@ def sass_sizes(lib_path) -> dict:
         name = body.split("\n", 1)[0]
         for k in KERNELS:
             if _build.mangles(k, name):
-                out[f"{k} {'g2' if 'Fq2' in name else 'g1'}"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
+                out[k + _build.field_suffix(name)] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
     return out
 
 
 def build_variants(names) -> dict:
-    """Build the variants `names`, four at a time; {name: loaded library}."""
+    """Build the variants `names`, four at a time; {name: loaded library}.
+    A variant that nvcc refuses is reported and left out."""
     root = _build.BUILD_ROOT.parent / "variants"
 
     def one(name):
@@ -315,9 +395,19 @@ def build_variants(names) -> dict:
                 (csrc / file).write_text(edit((csrc / file).read_text()))
         return name, _build.build(csrc)
 
+    def attempt(name):
+        try:
+            return one(name)
+        except RuntimeError as e:  # nvcc refused the variant: reported, and the run fails
+            return name, e
+
     libs = {}
     with ThreadPoolExecutor(4) as pool:
-        for name, (path, secs) in pool.map(one, names):
+        for name, built in pool.map(attempt, names):
+            if isinstance(built, RuntimeError):
+                log(f"build {name}: FAILED {built}")
+                continue
+            path, secs = built
             report = _build.ptxas_report((path.parent / "build.log").read_text(), KERNELS)
             log(f"build {name}: {secs:.1f} s; ptxas {json.dumps(report)}")
             log(f"  sass instructions {json.dumps(sass_sizes(path))}")
@@ -394,6 +484,19 @@ def k3_batch(tag: str, n: int, seed: int, dev):
     return JacPoint(*(rep(c) for c in p)), (rep(qx), rep(qy), rep(qinf.bool()))
 
 
+def add_batch(tag: str, n: int, seed: int, dev):
+    """Two Jacobian batches for the full add (z != 1): q equals p, with
+    another z, in the lanes i % 64 == 2, random elsewhere."""
+    curve = G1_CURVE if tag == "fq" else G2_CURVE
+    f = curve.ops
+    p, _ = k3_batch(tag, n, seed, dev)
+    q, _ = k3_batch(tag, n, seed + 2, dev)
+    l2 = f.sqr(p.z)  # p scaled by lam = p.z: the same point
+    same = JacPoint(f.mul(p.x, l2), f.mul(p.y, f.mul(l2, p.z)), f.mul(p.z, p.z))
+    q = curve.select(torch.arange(n, device=dev) % 64 == 2, same, q)
+    return p, JacPoint(*(c.contiguous() for c in q))
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -404,7 +507,8 @@ def main(argv: list[str]) -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     log(f"card: {card}")
     t0 = time.perf_counter()
-    libs = build_variants([name for name, (_, scope) in VARIANTS.items() if scope is None or kernels & set(scope)])
+    names = [name for name, (_, scope) in VARIANTS.items() if scope is None or kernels & set(scope)]
+    libs = build_variants(names)
     shipped_library = _build.library
     k6_budget = cuda_msm._BUCKET_LANES, cuda_msm._MIN_BUCKETS_PER_LANE
     merge_tiles = dict(cuda_msm._MERGE_TILE)
@@ -421,6 +525,10 @@ def main(argv: list[str]) -> int:
         a[:, 15] = a[:, 15] % (FR.p >> 240)
         b[:, 15] = b[:, 15] % (FR.p >> 240)
         cases.append(("K1 mont_mul fr 2^22", lambda: cuda_field.mont_mul(a, b, FR)))
+        for n in (4, 1, 1 << 21):
+            x = a[:n].clone()
+            x[:, 15] = x[:, 15] % (FQ.p >> 240)
+            cases.append((f"K1 mont_pow fq n={n}, e = p - 2", lambda x=x: cuda_field.mont_pow(x, FQ.p - 2, FQ)))
     if "K3" in kernels:
         for tag, n, n_affine in (("fq", 1 << 21, 1 << 20), ("fq2", 2_097_150, 1 << 18)):
             curve = G1_CURVE if tag == "fq" else G2_CURVE
@@ -432,6 +540,13 @@ def main(argv: list[str]) -> int:
             pa, q = k3_batch(tag, n_affine, 63, dev)
             cases.append((f"K3 madd {tag} n={n_affine}, nq=n",
                           lambda p=pa, q=q, tag=tag: cuda_curve.curve_madd(p, *q, tag)))
+        for tag, n in (("fq", (1 << 20) + 37), ("fq2", (1 << 18) + 61)):
+            p, q = add_batch(tag, n, 67, dev)
+            cases.append((f"K3 add {tag} n={n}, P == Q in one lane of 64",
+                          lambda p=p, q=q, tag=tag: cuda_curve.curve_add(p, q, tag)))
+            p1, q1 = (JacPoint(*(c[1:2].contiguous() for c in pt)) for pt in (p, q))
+            cases.append((f"K3 add {tag} n=1 (the sharded combine's)",
+                          lambda p=p1, q=q1, tag=tag: cuda_curve.curve_add(p, q, tag)))
         small, q3 = k3_batch("fq2", 3, 65, dev)
 
         def steps(p=small, q=q3):
@@ -486,7 +601,7 @@ def main(argv: list[str]) -> int:
 
         cases.append((f"K5 boundary_merge {tag} m={m}", merge))
 
-    ok = True
+    ok = set(libs) == set(names)
     results: dict = {}
     try:
         for label, fn in cases:

@@ -1,5 +1,5 @@
 """The build's ptxas report (ops/_build.py `ptxas_report`), which
-chip_smoke.py prints for the K4-K7 kernels: registers, spills and stack
+chip_smoke.py prints for K1's mont_pow and the K3-K7 kernels: registers, spills and stack
 frame read from nvcc's -Xptxas -v output."""
 
 from keyless_zk_tpu_torch.ops import _build
@@ -82,3 +82,24 @@ def test_mangled_names_match_whole_identifiers():
     assert _build.mangles("madd_kernel", "_ZN12_GLOBAL__N_111madd_kernelINS_4FqK3EEEvPKi")
     assert not _build.mangles("add_kernel", "_ZN12_GLOBAL__N_111madd_kernelINS_4FqK3EEEvPKi")
     assert _build.mangles("window_scan_kernel", "_Z18window_scan_kernelIN3kzk3Fq2EEvPKiS3_S3_PKhPixS6_S6_S6_S6_xx")
+
+
+POW_LOG = """\
+ptxas info    : Compiling entry function '_Z15mont_pow_kernelIN3kzk5FrModEEvPK4int4PS2_x8Exponent' for 'sm_90a'
+ptxas info    : Function properties for _Z15mont_pow_kernelIN3kzk5FrModEEvPK4int4PS2_x8Exponent
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 0 barriers, 412 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z15mont_pow_kernelIN3kzk5FqModEEvPK4int4PS2_x8Exponent' for 'sm_90a'
+ptxas info    : Function properties for _Z15mont_pow_kernelIN3kzk5FqModEEvPK4int4PS2_x8Exponent
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 412 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_keys_fr_apart():
+    """K1's kernels are built for Fr and Fq: the Fr instance has its own
+    key, and neither overwrites the other."""
+    rep = _build.ptxas_report(POW_LOG, ("mont_pow_kernel",))
+    assert set(rep) == {"mont_pow_kernel fr", "mont_pow_kernel g1"}
+    assert (rep["mont_pow_kernel fr"]["registers"], rep["mont_pow_kernel g1"]["registers"]) == (62, 64)
+    assert _build.field_suffix("_Z13horner_kernelIN3kzk3Fq2EEvPKiPixxiS3_i") == " g2"

@@ -62,3 +62,29 @@ def test_variants_run_on_the_kernels_they_concern():
     assert not kv.concerns("k3_calls", "K4 window_scan fq L=993 V=33792 over 16 x 32769 buckets")
     assert not kv.concerns("occupancy", "K3 dbl fq n=2097152 (setup step)")
     assert kv.concerns("sliced", "K7 horner_total fq2 Wn=22 c=12")
+
+
+def test_add_and_pow_variants_edit_what_they_name():
+    """The full add's variants change the add kernel's call and nothing of
+    the mixed add's (whose `madd_complete(` contains `add_complete(`); the
+    budgets change the add's blocks alone; `pow_bits` runs K1's power bit
+    by bit, without the window table."""
+    shipped = (_build.CSRC / "curve_ops.cu").read_text()
+    call = "store_point<F>(ox, oy, oz, i, {}(load_point<F>(ax, ay, az, i)"
+    assert call.format("add_complete") in shipped and shipped.count("madd_complete(load_point") == 1
+    branch = _edited("k3_add_branch")["curve_ops.cu"][1]
+    assert call.format("add_core") in branch and call.format("add_complete") not in branch
+    assert branch.count("madd_complete(load_point") == 1
+    any_ = _edited("k3_add_any")["curve_ops.cu"][1]
+    assert call.format("add_any") in any_ and "__any_sync(__activemask(), d)" in any_
+    assert any_.count("madd_complete(load_point") == 1 and "madd_any" not in any_
+    for name, blocks in (("k3_add_budget_2", 2), ("k3_add_budget_4", 4)):
+        edited = _budgets(_edited(name)["curve_ops.cu"][1])
+        assert [b[2] for b in edited] == [blocks, blocks]
+        assert [b[:2] for b in edited] == [b[:2] for b in _budgets(shipped)]
+    pow_shipped = (_build.CSRC / "mont_mul.cu").read_text()
+    bits = _edited("pow_bits")["mont_mul.cu"][1]
+    assert "Fp<M> t[16];" in pow_shipped and "Fp<M> t[16];" not in bits
+    assert "acc = mul(acc, x);" in bits and "kzk_mont_pow" in bits
+    assert kv.concerns("pow_bits", "K1 mont_pow fq n=4, e = p - 2")
+    assert not kv.concerns("pow_bits", "K3 add fq n=1 (the sharded combine's)")

@@ -272,11 +272,12 @@ def test_http_backpressure_gate():
     """One slot: a second request while it is held answers 503 with
     Retry-After; the next one after it is released answers 200."""
     state = ProverServiceState.new_for_testing(keyless_config=SMALL, device="cpu")
-    release = threading.Event()
+    entered, release = threading.Event(), threading.Event()
     real = handler.handle_request
 
     def slow(st, method, path, body):
         if path == "/slow":
+            entered.set()  # /slow holds the slot from here until released
             release.wait(10)
             return 200, {}, {"status": "ok"}
         return real(st, method, path, body)
@@ -289,7 +290,7 @@ def test_http_backpressure_gate():
         try:
             c1 = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
             c1.request("GET", "/slow")
-            time.sleep(0.3)
+            assert entered.wait(10)
             c2 = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
             c2.request("GET", "/healthcheck")
             r2 = c2.getresponse()
@@ -299,9 +300,19 @@ def test_http_backpressure_gate():
             r1 = c1.getresponse()
             assert r1.status == 200
             r1.read()
-            c3 = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
-            c3.request("GET", "/healthcheck")
-            assert c3.getresponse().status == 200
+            # the server frees the slot after it has written /slow's response,
+            # so the client may read it first: wait a bounded time for the
+            # slot, then the request must be answered 200
+            deadline = time.monotonic() + 5
+            while True:
+                c3 = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+                c3.request("GET", "/healthcheck")
+                r3 = c3.getresponse()
+                r3.read()
+                if r3.status != 503 or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+            assert r3.status == 200
         finally:
             release.set()
             srv.shutdown()
