@@ -63,8 +63,24 @@ Phases, in order; any failure exits non-zero:
    then the prover CLI: the key's zkey, witness and vk written under
    build/chip_smoke/cli, `python -m keyless_zk_tpu_torch.groth16.cli prove`
    in a subprocess (exit 0, "verified: true") and `verify` on its output;
-   then the sharded path over a one-process NCCL group (torch.distributed
-   on 127.0.0.1): `ShardedGroth16Prover.prove` with the same r and s equal
+   then the circom route at 2^20 constraints: the chain a == b^m with an
+   is_zero and a circom-form Num2Bits(254) of a chain wire appended to its
+   circom-order R1CS, written as .r1cs, input.json and .sym under
+   build/chip_smoke/circom; `witness_from_input_json` with a cold program
+   cache (served by the compiled program, the Python solver never called;
+   equal to the native witness under the permutation, every constraint
+   satisfied), `groth16_setup` on the card over that R1CS (K3's madd and
+   dbl launched), and `cli prove --zkey --r1cs --input --sym --vk` in a
+   subprocess with the cache warm (exit 0, "verified: true"; its proof
+   verifies under the native pairing, with a + 1 it does not); then the
+   ceremony tools on the 2^16 chain key: a release feed staged under
+   build/chip_smoke/ceremony with file:// URLs, `download_ceremony` with a
+   wrong pin (raises, installs nothing) and with the right pins (the
+   assets byte for byte), `setup_tool cache-push` and `cache-pull` into
+   another store (byte-equal), `cache-pull` of a missing key (exit 1), and
+   the prove CLI on the pulled key (verified); then the sharded path
+   over a one-process NCCL group (torch.distributed on 127.0.0.1):
+   `ShardedGroth16Prover.prove` with the same r and s equal
    to the single prover's proof and verifying (its launch counts: K3's
    full add combines each MSM's partials, and each captured call of it is
    held against its plain version), `four_step_ntt` forward and inverse
@@ -120,6 +136,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1123,7 +1140,7 @@ def verify_checked(vk, public: list, proof, label: str, tamper: bool = False) ->
     check(ok, f"{label}: the proof does not verify")
 
 
-def setup_path(dev, records: dict, sharded_counts: dict, domain_pow: int = 16) -> None:
+def setup_path(dev, records: dict, path_counts: dict, domain_pow: int = 16) -> None:
     import torch
 
     from keyless_zk_tpu_torch.circuits import groth16_setup, r1cs_from_cs
@@ -1158,7 +1175,8 @@ def setup_path(dev, records: dict, sharded_counts: dict, domain_pow: int = 16) -
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
     verify_checked(res.vk, [w[a]], proof, "setup path", tamper=True)
     cli_checks(res, w, dev)
-    sharded_checks(res, prover, witness, proof, [w[a]], dev, records, sharded_counts)
+    circom_checks(dev, path_counts["circom"])
+    sharded_checks(res, prover, witness, proof, [w[a]], dev, records, path_counts["sharded"])
 
 
 def sharded_checks(res, prover, witness, proof, public: list, dev, records: dict, counts: dict) -> None:
@@ -1229,6 +1247,20 @@ def sharded_checks(res, prover, witness, proof, public: list, dev, records: dict
         dist.destroy_process_group()
 
 
+def run_tool(args: list, label: str, timeout: int = 300) -> subprocess.CompletedProcess:
+    """`python -m <args>` from the repository root, with its exit code,
+    seconds and last stderr lines logged."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, timeout=timeout,
+                             cwd=Path(__file__).resolve().parent)
+    except subprocess.TimeoutExpired:
+        raise Failed(f"{label} did not finish within {timeout} s") from None
+    log(f"{label}: exit {out.returncode} in {time.perf_counter() - t0:.1f} s, "
+        f"stderr {out.stderr.strip().splitlines()[-2:]}")
+    return out
+
+
 CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "cli"
 
 
@@ -1237,7 +1269,6 @@ def cli_checks(res, w: list, dev) -> None:
     `python -m keyless_zk_tpu_torch.groth16.cli prove` in a subprocess
     (exit 0, "verified: true"); its proof through the CLI's `verify`."""
     import io
-    import shutil
 
     from keyless_zk_tpu_torch.fields import bn254
     from keyless_zk_tpu_torch.groth16 import cli
@@ -1253,16 +1284,10 @@ def cli_checks(res, w: list, dev) -> None:
     save_wtns(files["chain.wtns"], witness_from_ints(w, bn254.R_SCALAR))
     with open(files["chain_vk.json"], "w") as f:
         json.dump(res.vk, f)
-    t1 = time.perf_counter()
-    cmd = [sys.executable, "-m", "keyless_zk_tpu_torch.groth16.cli", "prove", "--zkey", files["chain.zkey"],
-           "--wtns", files["chain.wtns"], "--vk", files["chain_vk.json"], "--device", str(dev)]
-    try:
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
-    except subprocess.TimeoutExpired:
-        raise Failed("the prove CLI did not finish within 300 s") from None
-    t2 = time.perf_counter()
-    log(f"cli: files written in {t1 - t0:.1f} s; prove --zkey --wtns --vk: exit {out.returncode} in {t2 - t1:.1f} s, "
-        f"stderr {out.stderr.strip().splitlines()[-2:]}")
+    log(f"cli: files written in {time.perf_counter() - t0:.1f} s")
+    out = run_tool(["keyless_zk_tpu_torch.groth16.cli", "prove", "--zkey", files["chain.zkey"], "--wtns",
+                    files["chain.wtns"], "--vk", files["chain_vk.json"], "--device", str(dev)],
+                   "cli: prove --zkey --wtns --vk")
     check(out.returncode == 0 and "verified: true" in out.stderr, f"the prove CLI failed: {out.stderr[-2000:]}")
     proof_line, public_line = out.stdout.splitlines()[:2]
     for name, line in (("proof.json", proof_line), ("public.json", public_line)):
@@ -1274,6 +1299,249 @@ def cli_checks(res, w: list, dev) -> None:
                        "--public", files["public.json"]])
     log(f"cli: verify on its output: exit {rc}, {buf.getvalue().strip()}")
     check(rc == 0 and buf.getvalue().strip() == "verified: true", "the CLI's verify refused the CLI's proof")
+
+
+# ---- the circom route and the ceremony tools ---------------------------------------
+
+CIRCOM_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "circom"
+CEREMONY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ceremony"
+CIRCOM_DOMAIN_POW = 20
+NUM2BITS = 254
+
+
+def circom_circuit(domain_pow: int):
+    """The chain a == b^m (a public, b = 3 private) with an is_zero of
+    x = b^(m // 2), exported in circom's wire order, and a circom-form
+    Num2Bits(254) of x appended to the exported R1CS (254 rows b (b - 1) = 0
+    and one row 0 * 0 = sum 2^i b_i - x: the port's `to_bits` writes its sum
+    as (sum - x) * 1 = 0, which the compiler's bits lowering does not read).
+    m - 1 products, the equality, two is_zero rows, 255 Num2Bits rows and
+    the nPublic + 1 = 2 binding rows fill the domain 2^domain_pow.
+    Returns (cs, native witness ints, r1cs, perm, bit wires, x in circom
+    order, m)."""
+    from keyless_zk_tpu_torch.circuits import ConstraintSystem, gadgets
+    from keyless_zk_tpu_torch.circuits.r1cs_file import r1cs_circom_order
+    from keyless_zk_tpu_torch.fields import bn254
+
+    m = (1 << domain_pow) - (NUM2BITS + 1) - 4
+    cs = ConstraintSystem()
+    a = cs.public_wire()
+    cs.set_input_hint([a], "a")
+    b = cs.new_wire()
+    cs.set_input_hint([b], "b")
+    y = mid = b
+    for k in range(2, m + 1):
+        y = cs.mul(cs.lc(y), cs.lc(b))
+        if k == m // 2:
+            mid = y
+    cs.constrain_eq(cs.lc(y), cs.lc(a))
+    gadgets.is_zero(cs, cs.lc(mid))
+    native = cs.compute_witness(a=pow(3, m, bn254.R_SCALAR), b=3)
+    r1cs, perm = r1cs_circom_order(cs)
+    p, x = r1cs.prime, perm[mid]
+    bits = list(range(r1cs.n_wires, r1cs.n_wires + NUM2BITS))
+    for w in bits:
+        r1cs.A.append({w: 1})
+        r1cs.B.append({w: 1, 0: p - 1})
+        r1cs.C.append({})
+    r1cs.A.append({})
+    r1cs.B.append({})
+    r1cs.C.append({w: pow(2, i, p) for i, w in enumerate(bits)} | {x: p - 1})
+    r1cs.n_wires += NUM2BITS
+    r1cs.n_constraints += NUM2BITS + 1
+    return cs, native, r1cs, perm, bits, x, m
+
+
+def circom_route(dev, counts: dict) -> None:
+    """The circom route at 2^20 constraints: the circuit's .r1cs (the port's
+    save_r1cs), input.json and .sym; `witness_from_input_json` in-process
+    with a cold program cache (served by the compiled program, never by the
+    Python solver; equal to the native witness under the permutation, its
+    bits those of x, every constraint satisfied); `groth16_setup` on the
+    card over the circom-order R1CS (its launch counts into `counts`); then
+    `cli prove --zkey --r1cs --input --sym --vk` in a subprocess with the
+    cache warm: exit 0, "verified: true", its proof verifying under the
+    native pairing for a and not for a + 1."""
+    import torch
+
+    from keyless_zk_tpu_torch.circuits import circom_interop, groth16_setup
+    from keyless_zk_tpu_torch.circuits.r1cs_file import save_r1cs
+    from keyless_zk_tpu_torch.groth16 import pairing_native, verify_groth16
+    from keyless_zk_tpu_torch.groth16.zkey import save_zkey
+    from keyless_zk_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    cs, native, r1cs, perm, bits, x, m = circom_circuit(CIRCOM_DOMAIN_POW)
+    a = native[1]
+    log(f"circom: chain circuit with is_zero and Num2Bits({NUM2BITS}) built in {time.perf_counter() - t0:.1f} s "
+        f"(m = {m}; circom order: {r1cs.n_constraints} constraints, {r1cs.n_wires} wires)")
+    CIRCOM_DIR.mkdir(parents=True, exist_ok=True)
+    files = {name: str(CIRCOM_DIR / name) for name in ("circuit.r1cs", "input.json", "circuit.sym", "circuit.zkey",
+                                                        "circuit_vk.json")}
+    t0 = time.perf_counter()
+    save_r1cs(files["circuit.r1cs"], r1cs)
+    with open(files["input.json"], "w") as f:
+        json.dump({"a": str(a), "b": "3"}, f)
+    with open(files["circuit.sym"], "w") as f:  # #signal, #wire, #component, name
+        f.write("1,1,0,main.a\n2,2,0,main.b\n")
+    cached = circom_interop.CACHE_ROOT / f"{circom_interop.r1cs_digest(files['circuit.r1cs'])}.npz"
+    cached.unlink(missing_ok=True)
+    log(f"circom: files written in {time.perf_counter() - t0:.1f} s (r1cs {Path(files['circuit.r1cs']).stat().st_size} "
+        f"bytes); program cache {cached}")
+
+    compiled, solved = [], []
+    real_cached, real_solve = circom_interop._cached_program, circom_interop.solve_witness
+
+    def cached_program(r, path):
+        t = time.perf_counter()
+        prog = real_cached(r, path)
+        compiled.append((prog, time.perf_counter() - t))
+        return prog
+
+    def solve_witness(*args, **kw):
+        solved.append(args)
+        return real_solve(*args, **kw)
+
+    circom_interop._cached_program, circom_interop.solve_witness = cached_program, solve_witness
+    try:
+        t0 = time.perf_counter()
+        w = circom_interop.witness_from_input_json(files["circuit.r1cs"], files["input.json"], files["circuit.sym"])
+        wall = time.perf_counter() - t0
+    finally:
+        circom_interop._cached_program, circom_interop.solve_witness = real_cached, real_solve
+    check(len(compiled) == 1 and not solved, f"the witness was not served by the compiled program "
+          f"({len(compiled)} programs, {len(solved)} Python solves)")
+    prog, compile_s = compiled[0]
+    known = {1: a, 2: 3}
+    t0 = time.perf_counter()
+    wires = prog.compute(known)
+    compute_s = time.perf_counter() - t0
+    ops: dict = {}
+    for op, *_ in prog.program.cs.ops:
+        ops[op] = ops.get(op, 0) + 1
+    log(f"circom: witness_from_input_json {wall:.1f} s, of which the cold compile {compile_s:.1f} s "
+        f"(ops {json.dumps(ops)}, cached: {cached.exists()}); the program's compute {compute_s:.3f} s")
+    same = all(int(w[perm[i]]) == native[i] for i in range(cs.n_wires))
+    bits_ok = [int(w[b]) for b in bits] == [(int(w[x]) >> i) & 1 for i in range(NUM2BITS)]
+    t0 = time.perf_counter()
+    violated = prog.check(wires)
+    log(f"circom: witness equal to the native one under the permutation: {same}; Num2Bits bits those of x: "
+        f"{bits_ok}; check {time.perf_counter() - t0:.1f} s -> {violated}")
+    check(same and bits_ok, "the circom-order witness differs from the native witness")
+    check(violated is None, f"the circom-order witness violates constraint {violated}")
+    check({"fms", "iszero", "bits"} <= set(ops), "the compiled program lacks an fms, iszero or bits op")
+    del cs, native, w, wires, prog, compiled
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = groth16_setup(r1cs, toxic=TOXIC, device=dev)
+    torch.cuda.synchronize()
+    counts.update(_build.launch_counts())
+    log(f"circom: groth16_setup {time.perf_counter() - t0:.1f} s (host {res.seconds['host']:.1f} s, device ladders "
+        f"{res.seconds['device']:.1f} s), domain {res.pk.domain_size}, launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    check(res.pk.domain_size == 1 << CIRCOM_DOMAIN_POW, f"the circom setup's domain is {res.pk.domain_size}")
+    for name, _, _, path in KERNELS:
+        if path == "setup":
+            check(counts.get(name, 0) > 0, f"kernel {name} was not launched by the circom setup")
+    del r1cs
+    t0 = time.perf_counter()
+    save_zkey(files["circuit.zkey"], res.pk)
+    with open(files["circuit_vk.json"], "w") as f:
+        json.dump(res.vk, f)
+    log(f"circom: save_zkey and the vk {time.perf_counter() - t0:.1f} s")
+    del res
+
+    out = run_tool(["keyless_zk_tpu_torch.groth16.cli", "prove", "--zkey", files["circuit.zkey"], "--r1cs",
+                    files["circuit.r1cs"], "--input", files["input.json"], "--sym", files["circuit.sym"], "--vk",
+                    files["circuit_vk.json"], "--device", str(dev)], "circom: cli prove --zkey --r1cs --input --sym",
+                   timeout=600)
+    check(out.returncode == 0 and "verified: true" in out.stderr,
+          f"the circom prove CLI failed: {out.stderr[-2000:]}")
+    proof_line, public_line = out.stdout.splitlines()[:2]
+    proof, public = json.loads(proof_line), [int(v) for v in json.loads(public_line)]
+    with open(files["circuit_vk.json"]) as f:
+        vk = json.load(f)
+    check(pairing_native.available(), "the native pairing did not build")
+    ok, tampered = verify_groth16(vk, public, proof), verify_groth16(vk, [public[0] + 1], proof)
+    log(f"circom: the CLI's proof for public {public == [a]} verifies under the native pairing {ok}, "
+        f"with a + 1 {tampered}")
+    check(public == [a] and ok and not tampered, "the circom CLI proof does not verify, or verifies tampered")
+    shutil.rmtree(CIRCOM_DIR)
+
+
+def ceremony_checks(dev) -> None:
+    """The ceremony tools on the 2^16 chain key that `cli_checks` wrote: a
+    release feed staged under build/chip_smoke/ceremony with file:// URLs,
+    read by the default (urllib) fetch; `download_ceremony` with a wrong pin
+    raises and installs nothing, with the right pins installs the assets
+    byte for byte; `setup_tool cache-push` then `cache-pull` into another
+    store (subprocesses) carry every file byte for byte, and `cache-pull` of
+    a missing key exits 1; the prove CLI on the pulled zkey and vk with the
+    chain's .wtns verifies."""
+    import filecmp
+    import os
+
+    from keyless_zk_tpu_torch.tooling.ceremony import Releases, download_ceremony
+
+    shutil.rmtree(CEREMONY_DIR, ignore_errors=True)
+    release = CEREMONY_DIR / "release"
+    release.mkdir(parents=True)
+    shutil.copyfile(CLI_DIR / "chain.zkey", release / "prover_key.zkey")
+    shutil.copyfile(CLI_DIR / "chain_vk.json", release / "verification_key.json")
+    (release / "circuit_config.yaml").write_text("max_lengths: {}\nhas_input_skip_aud_checks: true\n")
+    names = ("prover_key.zkey", "verification_key.json", "circuit_config.yaml")
+    feed = [{"tag_name": "chip-smoke", "created_at": "2026-01-01T00:00:00Z",
+             "assets": [{"name": n, "browser_download_url": (release / n).as_uri(), "url": (release / n).as_uri()}
+                        for n in names]}]
+    pins = {n: hashlib.sha256((release / n).read_bytes()).hexdigest() for n in names}
+    bad_root = CEREMONY_DIR / "store_pinned_wrong"
+    try:
+        download_ceremony("chip-smoke", root=str(bad_root), releases=Releases(feed=feed),
+                          checksums=pins | {"prover_key.zkey": "0" * 64})
+        raise Failed("download_ceremony installed a release under a wrong pin")
+    except ValueError as e:
+        log(f"ceremony: a wrong pin -> {type(e).__name__}: {str(e)[:60]}...; installed: {bad_root.exists()}")
+    check(not bad_root.exists(), "a wrong pin left a setup store behind")
+    t0 = time.perf_counter()
+    setup = download_ceremony("chip-smoke", root=str(CEREMONY_DIR / "store_a"), releases=Releases(feed=feed),
+                              checksums=pins)
+    same = [filecmp.cmp(release / n, Path(setup) / n.replace(".yaml", ".yml"), shallow=False) for n in names]
+    log(f"ceremony: download_ceremony {time.perf_counter() - t0:.1f} s -> {setup}; assets byte-equal {same}")
+    check(all(same), "the installed ceremony differs from the release's assets")
+
+    remote = (CEREMONY_DIR / "remote").as_uri()
+    out = run_tool(["keyless_zk_tpu_torch.tooling.setup_tool", "cache-push", setup, "--remote", remote],
+                   "ceremony: setup_tool cache-push")
+    check(out.returncode == 0, f"cache-push failed: {out.stderr[-2000:]}")
+    key, root_b = os.path.basename(setup), str(CEREMONY_DIR / "store_b")
+    out = run_tool(["keyless_zk_tpu_torch.tooling.setup_tool", "cache-pull", key, "--remote", remote, "--root",
+                    root_b, "--slot", "default"], "ceremony: setup_tool cache-pull")
+    check(out.returncode == 0, f"cache-pull failed: {out.stderr[-2000:]}")
+    pulled = out.stdout.strip()
+    same = sorted(os.listdir(pulled)) == sorted(os.listdir(setup)) and all(
+        filecmp.cmp(Path(setup) / n, Path(pulled) / n, shallow=False) for n in os.listdir(setup))
+    log(f"ceremony: pulled {pulled}: every file byte-equal to the pushed setup's: {same}")
+    check(same, "the pulled setup differs from the pushed one")
+    out = run_tool(["keyless_zk_tpu_torch.tooling.setup_tool", "cache-pull", "zkey-0000000000000000", "--remote",
+                    remote, "--root", root_b], "ceremony: setup_tool cache-pull of a missing key")
+    check(out.returncode == 1, "cache-pull of a missing key did not exit 1")
+    out = run_tool(["keyless_zk_tpu_torch.groth16.cli", "prove", "--zkey", f"{pulled}/prover_key.zkey", "--wtns",
+                    str(CLI_DIR / "chain.wtns"), "--vk", f"{pulled}/verification_key.json", "--device", str(dev)],
+                   "ceremony: cli prove on the pulled setup")
+    check(out.returncode == 0 and "verified: true" in out.stderr,
+          f"the pulled setup's proof failed: {out.stderr[-2000:]}")
+    shutil.rmtree(CEREMONY_DIR)
+
+
+def circom_checks(dev, counts: dict) -> None:
+    """The circom route at full width, then the ceremony tools."""
+    t0 = time.perf_counter()
+    circom_route(dev, counts)
+    t1 = time.perf_counter()
+    ceremony_checks(dev)
+    log(f"circom_checks: {time.perf_counter() - t0:.1f} s (the circom route {t1 - t0:.1f} s, the ceremony tools "
+        f"{time.perf_counter() - t1:.1f} s)")
 
 
 # ---- the keyless path ------------------------------------------------------------
@@ -1364,8 +1632,6 @@ def keyless_procure(dev, setup_counts: dict, records: dict):
     """The real keyless circuit, then `setup_tool.procure` into a cold store
     under build/: the circuit's R1CS, the setup on the card, and its files.
     Returns (cs, setup directory, the setup's SetupResult)."""
-    import shutil
-
     import torch
 
     from keyless_zk_tpu_torch.circuits.keyless_circuit import KeylessConfig, build_keyless_circuit
@@ -1860,8 +2126,6 @@ def keyless_path(dev, records: dict, counts: dict) -> None:
     """The service's path: procure the setup on disk, start the service
     warm from it, prove through it, prove batches with its prover, then
     serve over HTTP."""
-    import shutil
-
     import torch
 
     cs, setup_dir, res = keyless_procure(dev, counts["setup"], records)
@@ -1912,7 +2176,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     records: dict = {}
-    counts: dict = {"prove": {}, "setup": {}, "batch": {}, "sharded": {}}
+    counts: dict = {"prove": {}, "setup": {}, "batch": {}, "sharded": {}, "circom": {}}
     try:
         log(f"card: {card}")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -1929,7 +2193,7 @@ def main() -> int:
         small_proof(dev)
         full_width(dev, counts["prove"], records)
         torch.cuda.empty_cache()
-        setup_path(dev, records, counts["sharded"])
+        setup_path(dev, records, counts)
         torch.cuda.empty_cache()
         keyless_path(dev, records, counts)
     except Failed as e:

@@ -50,6 +50,9 @@ _OPCODES = {
     "bigdiv": 7,
     "bigcarry": 7,
     "call": 7,
+    # R1CS propagation solves (foreign circom R1CS, circom_witness.py)
+    "fms": 8,
+    "divsub": 9,
 }
 
 _SRC = Path(__file__).resolve().parent.parent / "native" / "witness_engine.c"

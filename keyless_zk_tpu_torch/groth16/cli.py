@@ -4,15 +4,16 @@ Mirrors the reference's FullProver surface (rust-rapidsnark/src/lib.rs:45-98:
 new(zkey) + prove(wtns) -> proof JSON) as a command line:
 
     python -m keyless_zk_tpu_torch.groth16.cli prove --zkey Z --wtns W [--vk VK] [--device cpu]
+    python -m keyless_zk_tpu_torch.groth16.cli prove --zkey Z --r1cs R --input I [--sym S] [--vk VK] [--device cpu]
     python -m keyless_zk_tpu_torch.groth16.cli verify --vk VK --proof P --public I
 
 `prove` prints the proof JSON and the public signals on stdout, and its
 times and, with --vk, "verified: true|false" on stderr. It proves on the
-card unless --device says otherwise.
+card unless --device says otherwise. Without --wtns it solves the witness
+in circom's wire order from a circom .r1cs and input.json
+(circuits/circom_interop.py; --sym maps the inputs by signal name).
 
-A jax-free copy of keyless_zk_tpu/groth16/cli.py. Its --r1cs/--input route
-solves the witness with the JAX package's circom interop, which this
-package does not port: here that route exits 2 and says so.
+A jax-free copy of keyless_zk_tpu/groth16/cli.py.
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ import sys
 import time
 
 from .. import device as devices
+from ..circuits.circom_interop import witness_from_input_json
+from ..fields import bn254
 from ..fields.limbs import limbs_to_ints
 from .pairing import verify_groth16
 from .prover import Groth16Prover
-from .wtns import load_wtns
+from .wtns import load_wtns, witness_from_ints
 from .zkey import load_zkey
 
 
@@ -34,17 +37,22 @@ def _public_signals(pk, wtns) -> list[int]:
     return limbs_to_ints(wtns.values[1 : 1 + pk.n_public])
 
 
+def _load_witness(args):
+    """Witness from --wtns, or solved from --r1cs + --input (circom wire
+    order, see circuits/circom_interop.py) when no .wtns is given."""
+    if args.wtns:
+        return load_wtns(args.wtns)
+    w = witness_from_input_json(args.r1cs, args.input, args.sym)
+    return witness_from_ints([int(x) for x in w], bn254.R_SCALAR)
+
+
 def cmd_prove(args) -> int:
-    if not args.wtns:
-        if args.r1cs or args.input:
-            print("--r1cs/--input solves the witness through circom interop, which keyless_zk_tpu_torch does not "
-                  "port: write a .wtns and pass --wtns", file=sys.stderr)
-        else:
-            print("need --wtns", file=sys.stderr)
+    if not args.wtns and not (args.r1cs and args.input):
+        print("need --wtns, or --r1cs with --input", file=sys.stderr)
         return 2
     t0 = time.monotonic()
     pk = load_zkey(args.zkey)
-    wtns = load_wtns(args.wtns)
+    wtns = _load_witness(args)
     prover = Groth16Prover(pk, args.device)
     t1 = time.monotonic()
     proof = prover.prove(wtns.values)
@@ -80,8 +88,9 @@ def main(argv=None) -> int:
     p = sub.add_parser("prove", help="produce a Groth16 proof from zkey + wtns")
     p.add_argument("--zkey", required=True)
     p.add_argument("--wtns", help="snarkjs witness file (as the reference consumes)")
-    p.add_argument("--r1cs", help="not ported: circom .r1cs witness solving (exits 2)")
-    p.add_argument("--input", help="not ported: circom input.json (with --r1cs; exits 2)")
+    p.add_argument("--r1cs", help="circom .r1cs: solve the witness natively instead")
+    p.add_argument("--input", help="circom input.json (with --r1cs)")
+    p.add_argument("--sym", help="circom .sym table for input-name mapping")
     p.add_argument("--vk", help="snarkjs verification key JSON; verify after proving")
     p.add_argument("--device", default=devices.DEFAULT, help="torch device to prove on (default: the card)")
     p.set_defaults(fn=cmd_prove)

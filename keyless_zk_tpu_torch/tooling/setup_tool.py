@@ -11,12 +11,16 @@ ladders run on the card unless `device` says otherwise.
 
     python -m keyless_zk_tpu_torch.tooling.setup_tool procure-testing-setup [--device cpu]
     python -m keyless_zk_tpu_torch.tooling.setup_tool import-zkey Z [--vk VK]
+    python -m keyless_zk_tpu_torch.tooling.setup_tool download-ceremony RELEASE [--checksum ASSET=SHA256]
+    python -m keyless_zk_tpu_torch.tooling.setup_tool cache-push SETUP_DIR --remote R
+    python -m keyless_zk_tpu_torch.tooling.setup_tool cache-pull KEY --remote R [--slot default]
     python -m keyless_zk_tpu_torch.tooling.setup_tool show
 
+Release-ceremony download and the remote setup cache are tooling/ceremony.py;
+`cache-pull` of a key the remote lacks exits 1.
+
 A jax-free copy of keyless_zk_tpu/tooling/setup_tool.py: the checksum runs
-over this package's own circuit modules. Release-ceremony download and the
-remote setup cache (the JAX package's tooling/ceremony.py) are not ported:
-their commands exit 2 and say so.
+over this package's own circuit modules.
 """
 
 from __future__ import annotations
@@ -52,7 +56,6 @@ from .onchain_vk import vk_json_from_pk
 CIRCUIT_MODULES = (
     r1cs, gadgets, hash_gadget, jwt_gadget, misc_gadgets, rsa_gadget, sha256_gadget, base64_gadget, keyless_circuit,
 )
-NOT_PORTED = ("download-ceremony", "cache-push", "cache-pull")
 
 
 def circuit_checksum(keyless_config) -> str:
@@ -153,9 +156,8 @@ def import_zkey(
     The analog of the reference's release-ceremony download
     (scripts/python/setups/gh_release.py): the setup key is the zkey file's
     content hash; the verification key is extracted from the zkey header if
-    no snarkjs VK JSON is supplied; the limb-format table cache is built
-    beside the store's copy at once, so the first service start does not
-    pay the conversion.
+    no snarkjs VK JSON is supplied. The store's copy is parsed before
+    `.complete` is written, so a malformed zkey is never installed.
     """
     h = hashlib.sha256()
     with open(zkey_path, "rb") as f:
@@ -198,20 +200,27 @@ def main(argv=None) -> int:
     ss.add_argument("key")
     ss.add_argument("--slot", required=True, choices=["default", "new"])
     ss.add_argument("--root", default=DEFAULT_SETUP_ROOT)
-    for name in NOT_PORTED:
-        np_ = sub.add_parser(name, help="not ported to keyless_zk_tpu_torch (exits 2)")
-        np_.add_argument("args", nargs="*")
+    dc = sub.add_parser("download-ceremony", help="fetch a released trusted-setup ceremony (GitHub releases) "
+                        "and install it (gh_release.py/ceremony_setup.py analog)")
+    dc.add_argument("release")
+    dc.add_argument("--repo", default="aptos-labs/keyless-zk-proofs")
+    dc.add_argument("--auth-token", default=os.environ.get("GITHUB_TOKEN"))
+    dc.add_argument("--checksum", action="append", default=[], metavar="ASSET=SHA256",
+                    help="pin an asset's sha256 (repeatable); mismatch aborts")
+    dc.add_argument("--root", default=DEFAULT_SETUP_ROOT)
+    dc.add_argument("--slot", default="new", choices=["default", "new"])
+    cp = sub.add_parser("cache-push", help="tar.gz a setup to a remote cache")
+    cp.add_argument("setup_dir")
+    cp.add_argument("--remote", required=True)
+    cl = sub.add_parser("cache-pull", help="fetch a setup from a remote cache")
+    cl.add_argument("key")
+    cl.add_argument("--remote", required=True)
+    cl.add_argument("--root", default=DEFAULT_SETUP_ROOT)
+    cl.add_argument("--slot", choices=["default", "new"])
     sh = sub.add_parser("show")
     sh.add_argument("--root", default=DEFAULT_SETUP_ROOT)
-    args, extra = ap.parse_known_args(argv)
-    if args.cmd not in NOT_PORTED and extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
 
-    if args.cmd in NOT_PORTED:
-        print(f"{args.cmd}: the release-ceremony download and the remote setup cache (keyless_zk_tpu's "
-              f"tooling/ceremony.py) are not ported to keyless_zk_tpu_torch; use keyless_zk_tpu's setup tool, "
-              f"then import-zkey", file=sys.stderr)
-        return 2
     if args.cmd == "procure-testing-setup":
         print(procure(root=args.root, force=args.force, device=args.device))
         return 0
@@ -221,6 +230,23 @@ def main(argv=None) -> int:
         return 0
     if args.cmd == "set-slot":
         set_slot(args.root, args.key, args.slot)
+        return 0
+    if args.cmd in ("download-ceremony", "cache-push", "cache-pull"):
+        from . import ceremony  # it imports this module
+
+        if args.cmd == "download-ceremony":
+            checks = dict(kv.split("=", 1) for kv in args.checksum)
+            print(ceremony.download_ceremony(args.release, root=args.root, repo=args.repo,
+                                             auth_token=args.auth_token, checksums=checks or None, slot=args.slot))
+            return 0
+        if args.cmd == "cache-push":
+            print(ceremony.cache_push(args.setup_dir, args.remote))
+            return 0
+        path = ceremony.cache_pull(args.key, args.remote, root=args.root, slot=args.slot)
+        if path is None:
+            print("not found in cache", file=sys.stderr)
+            return 1
+        print(path)
         return 0
     if os.path.isdir(args.root):
         for entry in sorted(os.listdir(args.root)):

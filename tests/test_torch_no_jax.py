@@ -6,8 +6,10 @@ chain circuit (the setup through K3's plain versions), and run the port's
 compiled witness engine: on the gadget circuit of keyless_gadget_circuit.py
 (equal to the Python witness) and on an in-circuit RSA-2048 PKCS#1 check of
 a JWT from the port's seeded generator (satisfied; violated with the
-signature changed). `chip_smoke.py` imports nothing of JAX either, at its
-top level or inside its functions."""
+signature changed), and the circom route (a circom-order chain's .r1cs,
+input.json and .sym through `witness_from_input_json` and the compiled
+program; equal to the native witness). `chip_smoke.py` imports nothing of
+JAX either, at its top level or inside its functions."""
 
 import ast
 import os
@@ -61,7 +63,9 @@ assert len(modules) >= 20, modules
 assert {"keyless_zk_tpu_torch.parallel", "keyless_zk_tpu_torch.parallel.batch_prover",
         "keyless_zk_tpu_torch.parallel.distributed", "keyless_zk_tpu_torch.parallel.sharded",
         "keyless_zk_tpu_torch.parallel.sharded_prover", "keyless_zk_tpu_torch.tooling.vk_diff",
-        "keyless_zk_tpu_torch.tooling.release_helper"} <= set(modules), modules
+        "keyless_zk_tpu_torch.tooling.release_helper", "keyless_zk_tpu_torch.tooling.ceremony",
+        "keyless_zk_tpu_torch.circuits.circom_witness",
+        "keyless_zk_tpu_torch.circuits.circom_interop"} <= set(modules), modules
 
 from keyless_zk_tpu_torch.fields import torch_field as tf
 from keyless_zk_tpu_torch.groth16 import Groth16Prover
@@ -141,6 +145,24 @@ kw = {"sig": limbs(sig, 64, 32), "mod": limbs(tj.rsa_key.n, 64, 32),
 assert prog.check_witness(prog.compute_witness(**kw)) is None
 kw["sig"] = limbs(sig ^ 1, 64, 32)
 assert prog.check_witness(prog.compute_witness(**kw)) is not None
+
+# the circom route: a circom-order chain with an is_zero and a circom-form
+# Num2Bits, from its .r1cs, input.json and .sym through the compiled program
+import tempfile
+from pathlib import Path
+
+import torch_circom_fixtures as cf
+from keyless_zk_tpu_torch.circuits import circom_interop
+
+cs, r, perm, bits, x = cf.circom_chain("keyless_zk_tpu_torch", 40)
+with tempfile.TemporaryDirectory() as d:
+    circom_interop.CACHE_ROOT = Path(d) / "cache"
+    paths = cf.write_circom_files(Path(d), r, 40)
+    w = circom_interop.witness_from_input_json(paths["circuit.r1cs"], paths["input.json"], paths["circuit.sym"])
+    assert len(list(circom_interop.CACHE_ROOT.iterdir())) == 1
+native = cs.compute_witness(**{k: int(v) for k, v in cf.chain_inputs(40).items()})
+assert [w[perm[i]] for i in range(cs.n_wires)] == native
+assert [w[b] for b in bits] == [(w[x] >> i) & 1 for i in range(254)]
 ''' + DONE
 
 IMPORT_CHIP_SMOKE = REFUSE + r'''
