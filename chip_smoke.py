@@ -28,7 +28,14 @@ Phases, in order; any failure exits non-zero:
    full add's counts no add there); the
    mixed add also with one affine point for the whole batch
    (nq == 1), planted as P == Q and P == -Q in some lanes, and at
-   infinity;
+   infinity; then K4's complete body (`window_scan_complete`, the scan
+   with the P == Q doubling) on planted 2^16-row tables, G1 and G2, each
+   random point in four consecutive rows with a shared nonzero lowest
+   digit, some rows at infinity: `msm(..., assume_distinct=False)` equal
+   to a double-and-add over K3's complete mixed add, and on the stream
+   that msm built the complete body equal to its plain version (its
+   bound counts the lanes that took the doubling) and the distinct body
+   not;
 5. a small proof (synthetic key at domain 2^10) on the card, which runs the
    matmul NTT, and on the CPU through the plain versions, which runs the
    butterfly NTT, with the same r and s: the proofs must be equal, and
@@ -102,7 +109,12 @@ Phases, in order; any failure exits non-zero:
    vk point by vk point before the prover is built, the prover), the
    native pairing required. Prove through the service's program and prover: one
    warm-up proof whose five MSMs are each held against a double-and-add
-   over K3's complete mixed add (as affine points), three timed proofs
+   over K3's complete mixed add (as affine points), then
+   `msm(..., assume_distinct=False)` with the same witness on the key's
+   raw tables A, B1, C and B2, which repeat points, each equal as an
+   affine point to the prover's MSM over its deduplicated table, with
+   both times (their launch counts are the complete body's path, and
+   msm_a's scan stream is held against the plain version), three timed proofs
    with per-phase CUDA-event times, every proof checked under the pairing
    against [public-inputs hash] (a tampered proof must fail), the launch
    counts of one proof, the coefficient evaluation's time. Serve: the HTTP
@@ -134,6 +146,7 @@ package beside it, the script prints no result and exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import shutil
@@ -145,7 +158,7 @@ from pathlib import Path
 KERNELS = [
     # (record: the wrapper, whose counter gives its launches; source; the TPU
     # kernel it replaces; the path whose run gives its launches: "prove",
-    # "setup", "batch" or "sharded")
+    # "setup", "batch", "sharded" or "complete")
     ("mont_mul", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145", "prove"),
     # K1's product chained through jax_field.mont_pow's fori_loop, in one launch
     ("mont_pow", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145", "prove"),
@@ -153,6 +166,9 @@ KERNELS = [
     ("curve_dbl", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:152", "setup"),
     ("curve_add", "keyless_zk_tpu_torch/csrc/curve_ops.cu", "keyless_zk_tpu/ops/pallas_curve.py:168", "sharded"),
     ("window_scan", "keyless_zk_tpu_torch/csrc/msm_scan.cu", "keyless_zk_tpu/ops/pallas_msm.py:253", "prove"),
+    # K4's second body (assume_distinct=False: the P == Q doubling), on the real key's raw tables
+    ("window_scan_complete", "keyless_zk_tpu_torch/csrc/msm_scan.cu", "keyless_zk_tpu/ops/pallas_msm.py:253",
+     "complete"),
     ("boundary_merge", "keyless_zk_tpu_torch/csrc/msm_merge.cu", "keyless_zk_tpu/ops/pallas_msm.py:413", "prove"),
     ("weighted_bucket_total", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:548",
      "prove"),
@@ -269,6 +285,7 @@ def plain_kernels():
         cuda_field: {"mont_mul": cuda_field.mont_mul_plain, "mont_pow": cuda_field.mont_pow_plain},
         cuda_msm: {
             "window_scan": cuda_msm.window_scan_plain,
+            "window_scan_complete": functools.partial(cuda_msm.window_scan_plain, assume_distinct=False),
             "boundary_merge": cuda_msm.boundary_merge_plain,
             "weighted_bucket_total": cuda_msm.weighted_bucket_total_plain,
             "horner_total": cuda_msm.horner_total_plain,
@@ -600,12 +617,12 @@ def capture_calls(module, names, store: dict, at: int = 0, seen: dict | None = N
         def __init__(self, name, fn):
             self.name, self.fn = name, fn
 
-        def __call__(self, *args):
+        def __call__(self, *args, **kwargs):  # keyword arguments pass through, unrecorded
             sig = _signature(self.name, args)
             seen[sig] = seen.get(sig, 0) + 1
             if seen[sig] == at + 1:
                 store[sig] = tuple(_clone(a) for a in args)
-            return self.fn(*args)
+            return self.fn(*args, **kwargs)
 
         @property
         def launches(self):
@@ -633,7 +650,7 @@ def _describe(sig: tuple) -> str:
     if name in REDC_KERNELS:
         return f"N={rest[0][1]}"
     tag, *rest = rest
-    if name == "window_scan":
+    if name in ("window_scan", "window_scan_complete"):
         (L, V), _, (rows, _), _, (_, n_seg) = rest
         return f"{tag} L={L} V={V} table {rows} rows, {n_seg} buckets"
     if name == "boundary_merge":
@@ -669,7 +686,7 @@ def msm_imad(name: str, args) -> float:
     import torch
 
     tag = args[0]
-    if name == "window_scan":  # one mixed add per stream entry of a finite point
+    if name in ("window_scan", "window_scan_complete"):  # one mixed add per stream entry of a finite point
         _, _, pay, _, tinf, _ = args
         return group_imad("madd", tag, int((~tinf[(pay & ((1 << 30) - 1)).long()]).sum()))
     if name == "boundary_merge":  # one add per entry whose bucket key equals its predecessor's
@@ -690,7 +707,7 @@ def scan_check(records, args, note) -> None:
     place: each side starts from its own copy of the captured table, and
     the tables are compared with the heads and tails. The timed launches
     then write into the captured table itself (each writes the same
-    columns)."""
+    columns). The complete body is timed on the same stream too."""
     from keyless_zk_tpu_torch.ops import cuda_msm
 
     tag, keys, pay, table, tinf, tbl = args
@@ -701,10 +718,78 @@ def scan_check(records, args, note) -> None:
     with plain_kernels():
         want, plain_ms = cuda_ms(lambda: cuda_msm.window_scan_plain(*args[:-1], want_tbl), warm=False)
     _, ms = cuda_ms(lambda: cuda_msm.window_scan(*args), reps=3)
+    _, complete_ms = cuda_ms(lambda: cuda_msm.window_scan_complete(*args), reps=3)
     written = int((got_tbl != tbl0).any(dim=0).sum())
     moved = nbytes(keys, pay, table, tinf, got) + written * tbl0.shape[0] * tbl0.element_size()
     record(records, "window_scan", max_abs_err((got_tbl, *got), (want_tbl, *want)), ms, plain_ms,
-           f"{note}, {written} interior buckets written", moved=moved, imad=msm_imad("window_scan", args))
+           f"{note}, {written} interior buckets written; the complete body on this stream {complete_ms:.3f} ms",
+           moved=moved, imad=msm_imad("window_scan", args))
+
+
+@contextlib.contextmanager
+def counting_doublings(tag: str, out: list):
+    """While the complete scan's plain version runs, append to `out` the
+    lanes of each of its mixed adds that take the P == Q doubling: the
+    accumulator and the affine point both finite and equal (qx z^2 == x,
+    qy z^3 == y). The plain version adds onto infinity where a run starts,
+    so only lanes inside a run count."""
+    from keyless_zk_tpu_torch.ops import cuda_curve
+    from keyless_zk_tpu_torch.ops.cuda_msm import curve_for
+
+    real = cuda_curve.madd_plain
+    f = curve_for(tag).ops
+
+    def eq(a, b):
+        return (a == b).reshape(a.shape[0], -1).all(1)
+
+    def counted(p, qx, qy, q_inf, tag_):
+        z2 = f.sqr(p.z)
+        same = eq(f.mul(qx, z2), p.x) & eq(f.mul(qy, f.mul(z2, p.z)), p.y)
+        out.append(int((same & ~f.is_zero(p.z) & ~q_inf).sum()))
+        return real(p, qx, qy, q_inf, tag_)
+
+    cuda_curve.madd_plain = counted
+    try:
+        yield
+    finally:
+        cuda_curve.madd_plain = real
+
+
+def complete_scan_check(records, args, note, *, distinct_differs: bool | None) -> int:
+    """K4's complete body against its plain version (the complete law), as
+    `scan_check` does for the distinct body; the bound counts one affine
+    doubling per lane that took it. The distinct body runs on the same
+    stream: `distinct_differs` True requires it to differ from the plain
+    version (the stream reaches the doubling), False to equal it, None
+    only logs. Returns the doubling lanes."""
+    from keyless_zk_tpu_torch.ops import cuda_msm
+
+    tag, keys, pay, table, tinf, tbl = args
+    tbl0 = tbl.clone()
+    got_tbl = tbl0.clone()
+    got = cuda_msm.window_scan_complete(*args[:-1], got_tbl)
+    want_tbl = tbl0.clone()
+    doublings: list = []
+    with plain_kernels(), counting_doublings(tag, doublings):
+        want, plain_ms = cuda_ms(lambda: cuda_msm.window_scan_plain(*args[:-1], want_tbl, assume_distinct=False),
+                                 warm=False)
+    n_dbl = sum(doublings)
+    distinct_tbl = tbl0.clone()
+    distinct = cuda_msm.window_scan(*args[:-1], distinct_tbl)
+    distinct_err = max_abs_err((distinct_tbl, *distinct), (want_tbl, *want))
+    _, ms = cuda_ms(lambda: cuda_msm.window_scan_complete(*args), reps=3)
+    _, distinct_ms = cuda_ms(lambda: cuda_msm.window_scan(*args), reps=3)
+    written = int((got_tbl != tbl0).any(dim=0).sum())
+    moved = nbytes(keys, pay, table, tinf, got) + written * tbl0.shape[0] * tbl0.element_size()
+    imad = msm_imad("window_scan_complete", args) + group_imad("dbl_affine", tag, n_dbl)
+    record(records, "window_scan_complete", max_abs_err((got_tbl, *got), (want_tbl, *want)), ms, plain_ms,
+           f"{note}, {written} interior buckets written, {n_dbl} doubling lanes; the distinct body "
+           f"{distinct_ms:.3f} ms, equal to the plain version: {distinct_err == 0}", moved=moved, imad=imad)
+    if distinct_differs is not None:
+        check((distinct_err != 0) == distinct_differs,
+              f"the distinct body {'equals' if distinct_differs else 'differs from'} the complete plain version "
+              f"({note})")
+    return n_dbl
 
 
 def merge_check(records, args, note) -> None:
@@ -901,6 +986,126 @@ def msm_kernel_checks(store: dict, records: dict, dev) -> None:
     k7_planted(dev, records)
 
 
+# ---- K4's complete body ----------------------------------------------------------
+
+PLANTED_ROWS = 1 << 16
+
+
+def planted_table(tag: str, dev):
+    """A table of PLANTED_ROWS rows: random points, each in four
+    consecutive rows, the four rows of every 97th point at infinity (zero
+    coordinates), and scalars whose lowest c-bit digit is nonzero and
+    shared by a point's four rows, so that every run of window 0 adds
+    P + P at once. Returns (curve, x, y, inf, scalars)."""
+    import torch
+
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE
+    from keyless_zk_tpu_torch.fields.torch_field import FR
+    from keyless_zk_tpu_torch.ops import testgen
+    from keyless_zk_tpu_torch.ops.msm import fused_window_bits
+
+    curve = G1_CURVE if tag == "fq" else G2_CURVE
+    n, groups = PLANTED_ROWS, PLANTED_ROWS // 4
+    ux, uy, _ = testgen.random_points(groups, seed=41, curve=curve, device=dev)
+    x, y = (t.repeat_interleave(4, dim=0).contiguous() for t in (ux, uy))
+    inf = (torch.arange(n, device=dev) // 4) % 97 == 5
+    x[inf] = 0
+    y[inf] = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(42)
+    scalars = rand_field(gen, n, FR, dev)
+    c = fused_window_bits(n)
+    digit = torch.randint(1, (1 << (c - 1)) + 1, (groups,), generator=gen, device=dev, dtype=torch.int32)
+    scalars[:, 0] = (scalars[:, 0] & (0xFFFF ^ ((1 << c) - 1))) | digit.repeat_interleave(4)
+    return curve, x, y, inf, scalars
+
+
+def complete_planted(dev, records: dict) -> None:
+    """K4's two bodies on planted tables (G1 and G2) with P + P in the
+    bucket runs: `msm(..., assume_distinct=False)` equal to a double-and-add
+    over K3's complete mixed add, the complete body equal to its plain
+    version on the stream that msm built, the distinct body not."""
+    from keyless_zk_tpu_torch.ops import cuda_msm
+    from keyless_zk_tpu_torch.ops.msm import _msm_small, msm
+
+    for tag in ("fq", "fq2"):
+        t0 = time.perf_counter()
+        curve, x, y, inf, scalars = planted_table(tag, dev)
+        calls: dict = {}
+        t1 = time.perf_counter()
+        with capture_calls(cuda_msm, ("window_scan_complete",), calls):
+            got = curve.decode_jacobian(msm(x, y, inf, scalars, curve=curve, assume_distinct=False))
+        t2 = time.perf_counter()
+        want = curve.decode_jacobian(_msm_small(x, y, inf, scalars, curve=curve))
+        t3 = time.perf_counter()
+        log(f"complete body, planted {tag} ({PLANTED_ROWS} rows, each point in four consecutive rows): "
+            f"msm(assume_distinct=False) == K3 double-and-add: {got == want} (table {t1 - t0:.2f} s, "
+            f"msm {t2 - t1:.2f} s, double-and-add {t3 - t2:.2f} s)")
+        check(got == want, f"planted {tag}: msm(assume_distinct=False) differs from the double-and-add")
+        (sig, args), = calls.items()
+        n_dbl = complete_scan_check(records, args, f"planted: {_describe(sig)}", distinct_differs=True)
+        check(n_dbl > 0, f"planted {tag}: no lane of the complete scan took the doubling")
+
+
+def raw_table_msms(prover, w, dev, records: dict, counts: dict) -> None:
+    """`msm(..., assume_distinct=False)` at full width on the key's raw
+    tables A, B1, C (G1) and B2 (G2), which repeat points (the zkey the
+    service loaded, checked equal to the setup's key), with the prover's
+    windows, each equal as an affine point to the prover's MSM of the same
+    witness over its deduplicated table, with both times. The launch
+    counts of the four MSMs are the "complete" path's; msm_a's scan stream
+    is captured and held against the plain version."""
+    import numpy as np
+    import torch
+
+    from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE
+    from keyless_zk_tpu_torch.groth16.prover import _SPARSE_C
+    from keyless_zk_tpu_torch.ops import _build, cuda_msm
+    from keyless_zk_tpu_torch.ops.msm import msm
+
+    pk = prover.pk
+    pad_c = pk.n_vars - pk.points_c.x.shape[0]  # C pairs with the witness from row pad_c on
+
+    def on_card(t):
+        return (torch.from_numpy(np.ascontiguousarray(t.x).astype(np.int32)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(t.y).astype(np.int32)).to(dev),
+                torch.from_numpy(np.asarray(t.inf, bool)).to(dev))
+
+    runs = {  # raw table, its scalars, the prover's table and merge, curve
+        "a": (on_card(pk.points_a), w, prover.points_a, prover._merge_a, G1_CURVE),
+        "b1": (on_card(pk.points_b1), w, prover.points_b1, prover._merge_b1, G1_CURVE),
+        "b2": (on_card(pk.points_b2), w, prover.points_b2, prover._merge_b2, G2_CURVE),
+        "c": (on_card(pk.points_c), w[pad_c:], prover.points_c, prover._merge_c, G1_CURVE),
+    }
+    torch.cuda.synchronize()
+    scan_calls: dict = {}
+    got = {}
+    _build.reset_launch_counts()
+    for name, (raw, sc, _, _, curve) in runs.items():
+        spy = capture_calls(cuda_msm, ("window_scan_complete",), scan_calls) if name == "a" else contextlib.nullcontext()
+        with spy:
+            got[name] = msm(*raw, sc, curve=curve, c=_SPARSE_C, assume_distinct=False)
+    counts.update(_build.launch_counts())
+    log(f"launch counts (complete path: the four MSMs on the raw tables): "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    check(counts["window_scan_complete"] == 4 and counts["window_scan"] == 0,
+          "the raw-table MSMs did not each launch the complete scan once, and the distinct one never")
+    for name, (raw, sc, table, merge, curve) in runs.items():
+        merged = prover._merge_scalars(w, merge)
+        want = prover._msm(table, merged, curve, c=_SPARSE_C)
+        equal = curve.decode_jacobian(got[name]) == curve.decode_jacobian(want)
+        _, raw_ms = cuda_ms(lambda: msm(*raw, sc, curve=curve, c=_SPARSE_C, assume_distinct=False), reps=3)
+        _, dedup_ms = cuda_ms(lambda: prover._msm(table, merged, curve, c=_SPARSE_C), reps=3)
+        log(f"complete body, raw table msm_{name}: {raw[2].shape[0]} rows ({table[2].shape[0]} distinct), "
+            f"== the prover's MSM over its deduplicated table: {equal}; msm(assume_distinct=False) on the raw "
+            f"table {raw_ms:.3f} ms, the prover's (distinct body) on the deduplicated table {dedup_ms:.3f} ms")
+        check(equal, f"msm_{name} on the raw table differs from the prover's deduplicated MSM")
+    (sig, args), = scan_calls.items()
+    complete_scan_check(records, args, f"raw msm_a stream: {_describe(sig)}", distinct_differs=None)
+    del runs, got, scan_calls
+    torch.cuda.empty_cache()
+
+
 def redc_kernel_checks(store: dict, records: dict) -> None:
     """Each captured main-path call of K8 (both bodies) through the kernel
     and through its plain version."""
@@ -1061,6 +1266,7 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
             check(counts_out.get(name, 0) > 0, f"kernel {name} was not launched by the prove path")
     check(counts_out["boundary_merge"] <= 3 * 5, "K5 took more than three launches per MSM")
     check_k1_launches(counts_out, "the full-width proof")
+    check(counts_out.get("window_scan_complete", 0) == 0, "the full-width proof launched the complete scan")
 
     w = torch.from_numpy(key.witness.astype("int32")).to(dev)
     got = prover._h_scalars(w)
@@ -1767,10 +1973,11 @@ def start_service(dev, setup_pk):
     return state
 
 
-def keyless_proofs(dev, state, kw, wires_ref, public_hash) -> None:
+def keyless_proofs(dev, state, kw, wires_ref, public_hash, records: dict, counts: dict) -> None:
     """The proofs of the test JWT through the service's witness program and
     prover: a warm-up (tampered copy refused), its five MSMs against K3's
-    double-and-add, three timed proofs, their launch counts."""
+    double-and-add, the complete MSM on the key's raw tables with the
+    warm-up witness, three timed proofs, their launch counts."""
     import numpy as np
     import torch
 
@@ -1790,6 +1997,7 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash) -> None:
     verify_checked(state.vk, [public_hash], proof, "keyless proof warm-up", tamper=True)
     w = torch.from_numpy(witness.astype(np.int32)).to(dev)
     msm_against_double_and_add(prover, w)
+    raw_table_msms(prover, w, dev, records, counts["complete"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1812,6 +2020,7 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash) -> None:
         if path == "prove":
             check(prove_counts.get(name, 0) > 0, f"kernel {name} was not launched by the keyless proof")
     check_k1_launches(prove_counts, "the keyless proof")
+    check(prove_counts.get("window_scan_complete", 0) == 0, "the keyless proof launched the complete scan")
     log_eval_ab("keyless path", prover, w)
 
 
@@ -2134,7 +2343,7 @@ def keyless_path(dev, records: dict, counts: dict) -> None:
     state = start_service(dev, res.pk)
     del res
     torch.cuda.empty_cache()
-    keyless_proofs(dev, state, kw, wires, public_hash)
+    keyless_proofs(dev, state, kw, wires, public_hash, records, counts)
     del wires
     torch.cuda.empty_cache()
     batch_proofs(dev, state, records, counts["batch"])
@@ -2151,6 +2360,7 @@ def timed_proof(prover, witness, r, s):
 
 
 PTXAS_KERNELS = ("mont_pow_kernel", "madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel",
+                 "window_scan_complete_kernel",
                  "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
 
 
@@ -2176,7 +2386,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     records: dict = {}
-    counts: dict = {"prove": {}, "setup": {}, "batch": {}, "sharded": {}, "circom": {}}
+    counts: dict = {"prove": {}, "setup": {}, "batch": {}, "sharded": {}, "circom": {}, "complete": {}}
     try:
         log(f"card: {card}")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -2190,6 +2400,7 @@ def main() -> int:
         mont_mul_checks(dev, records)
         mont_pow_checks(dev, records)
         k3_checks(dev, records)
+        complete_planted(dev, records)
         small_proof(dev)
         full_width(dev, counts["prove"], records)
         torch.cuda.empty_cache()

@@ -4,8 +4,10 @@
 // pallas_call, body `_scan_kernel_body`); its contract is
 // keyless_zk_tpu/ops/msm_sim.py `window_scan`. V lanes each walk L
 // consecutive stream entries (slab t of lane l is entry t*V + l of the
-// slab-major stream), one complete mixed add per step, and each lane
-// reports its first (head) and last (tail) run.
+// slab-major stream), one mixed add per step, and each lane reports its
+// first (head) and last (tail) run. The Pallas kernel has two bodies, with
+// and without the P == Q doubling (`assume_distinct`); so does this one
+// (`scan_lane`), as two kernels.
 //
 // The TPU kernel streams every slab's pre-add accumulator to an emit buffer,
 // and the orchestrator gathers the interior bucket totals from it. Here a
@@ -30,7 +32,11 @@
 // (coalesced: neighbouring lanes are neighbouring threads and addresses),
 // the random 128-byte (G1) or 256-byte (G2) row gather, and one bucket
 // write per interior bucket. The orchestrator (ops/msm.py) launches one
-// wave of lanes for the whole stream.
+// wave of lanes for the whole stream. The complete body adds the affine
+// doubling (6 Fq products for G1) only in the lanes where P == Q, behind
+// madd_complete's branch: on distinct points it costs what the distinct
+// body does; where doublings crowd into a few lanes, those lanes set the
+// wave's length (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -51,15 +57,17 @@ __device__ __forceinline__ void load_affine(const int4* row, Fq2& x, Fq2& y) {
   y = {load_row<FqMod>(row + 8), load_row<FqMod>(row + 12)};
 }
 
-template <class F>
-__global__ void __launch_bounds__(128)
-window_scan_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
-                   const int32_t* __restrict__ table, const uint8_t* __restrict__ tinf,
-                   int32_t* __restrict__ tbl, long long n_seg, int32_t* __restrict__ hk,
-                   int32_t* __restrict__ hpt, int32_t* __restrict__ tk, int32_t* __restrict__ tpt, long long L,
-                   long long V) {
-  long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (l >= V) return;
+// One lane's walk. `Complete` picks the group law: madd_core (no P == Q
+// doubling, the body of pallas_msm `_scan_kernel_body(F, assume_distinct=
+// True)`) or madd_complete (its `assume_distinct=False` body: a partial sum
+// equal to the incoming point takes the affine doubling, behind a branch
+// that only the lanes it fires in pay for).
+template <class F, bool Complete>
+__device__ __forceinline__ void scan_lane(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
+                                          const int32_t* __restrict__ table, const uint8_t* __restrict__ tinf,
+                                          int32_t* __restrict__ tbl, long long n_seg, int32_t* __restrict__ hk,
+                                          int32_t* __restrict__ hpt, int32_t* __restrict__ tk,
+                                          int32_t* __restrict__ tpt, long long L, long long V, long long l) {
   constexpr int R = Field<F>::rows;
   Jac<F> acc = jac_infinity<F>();
   int cur_key = 0, head_key = -2;
@@ -85,10 +93,14 @@ window_scan_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__
       }
     }
     is_head = t == 0 || (is_head && same);
-    if (same)
-      acc = madd_core(acc, x2, y2, q_inf);
-    else
+    if (same) {
+      if constexpr (Complete)
+        acc = madd_complete(acc, x2, y2, q_inf);
+      else
+        acc = madd_core(acc, x2, y2, q_inf);
+    } else {
       acc = {x2, y2, q_inf ? Field<F>::zero() : Field<F>::one()};
+    }
     cur_key = k;
   }
   if (is_head) {  // one run spans the whole lane: it is the head
@@ -103,29 +115,56 @@ window_scan_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__
   }
 }
 
+// the two bodies are two kernels, so that ptxas reports each on its own
+template <class F>
+__global__ void __launch_bounds__(128)
+window_scan_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
+                   const int32_t* __restrict__ table, const uint8_t* __restrict__ tinf,
+                   int32_t* __restrict__ tbl, long long n_seg, int32_t* __restrict__ hk,
+                   int32_t* __restrict__ hpt, int32_t* __restrict__ tk, int32_t* __restrict__ tpt, long long L,
+                   long long V) {
+  long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (l >= V) return;
+  scan_lane<F, false>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
+}
+
+template <class F>
+__global__ void __launch_bounds__(128)
+window_scan_complete_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
+                            const int32_t* __restrict__ table, const uint8_t* __restrict__ tinf,
+                            int32_t* __restrict__ tbl, long long n_seg, int32_t* __restrict__ hk,
+                            int32_t* __restrict__ hpt, int32_t* __restrict__ tk, int32_t* __restrict__ tpt,
+                            long long L, long long V) {
+  long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (l >= V) return;
+  scan_lane<F, true>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
+}
+
 template <class F>
 static void launch(const void* keys, const void* pay, const void* table, const void* tinf, void* tbl,
                    long long n_seg, void* hk, void* hpt, void* tk, void* tpt, long long L, long long V,
-                   cudaStream_t s) {
+                   bool complete, cudaStream_t s) {
   const int threads = 128;
   long long blocks = (V + threads - 1) / threads;
-  window_scan_kernel<F><<<blocks, threads, 0, s>>>(
-      (const int32_t*)keys, (const int32_t*)pay, (const int32_t*)table, (const uint8_t*)tinf, (int32_t*)tbl,
-      n_seg, (int32_t*)hk, (int32_t*)hpt, (int32_t*)tk, (int32_t*)tpt, L, V);
+  auto kernel = complete ? window_scan_complete_kernel<F> : window_scan_kernel<F>;
+  kernel<<<blocks, threads, 0, s>>>((const int32_t*)keys, (const int32_t*)pay, (const int32_t*)table,
+                                    (const uint8_t*)tinf, (int32_t*)tbl, n_seg, (int32_t*)hk, (int32_t*)hpt,
+                                    (int32_t*)tk, (int32_t*)tpt, L, V);
 }
 
 // keys, pay: (L, V) int32 slab-major (pay = table row | negate << 30);
 // table: (n+1, 2R) int32 affine x||y limb rows; tinf: (n+1,) uint8.
 // tbl: (3R, n_seg) bucket table, updated in place at the interior buckets;
-// hk, tk: (V,); hpt, tpt: (3R, V).
+// hk, tk: (V,); hpt, tpt: (3R, V). complete: the body with the P == Q
+// doubling (madd_complete) instead of madd_core's.
 extern "C" int kzk_window_scan(const void* keys, const void* pay, const void* table, const void* tinf, void* tbl,
                                long long n_seg, void* hk, void* hpt, void* tk, void* tpt, long long L,
-                               long long V, int g2, void* stream) {
+                               long long V, int g2, int complete, void* stream) {
   if (L == 0 || V == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (g2)
-    launch<Fq2>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, s);
+    launch<Fq2>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, complete != 0, s);
   else
-    launch<Fp<FqMod>>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, s);
+    launch<Fp<FqMod>>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, complete != 0, s);
   return (int)cudaGetLastError();
 }

@@ -53,6 +53,9 @@ class JacobianCurve:
         f = self.ops
         return JacPoint(f.select(mask, p.x, q.x), f.select(mask, p.y, q.y), f.select(mask, p.z, q.z))
 
+    def neg(self, p: JacPoint) -> JacPoint:
+        return JacPoint(p.x, self.ops.neg(p.y), p.z)
+
     # ---- group law ----
     def dbl(self, p: JacPoint) -> JacPoint:
         f = self.ops
@@ -134,6 +137,18 @@ class JacobianCurve:
         out = self.select(p_inf, JacPoint(qx, qy, q_z), out)
         out = self.select(q_inf, p, out)
         return out
+
+    def scalar_mul_bits(self, p: JacPoint, bits) -> JacPoint:
+        """MSB-first double-and-add with a (nbits,) 0/1 array (shared
+        exponent). The bits are read on the host and the add runs at the
+        set bits only; the JAX version adds at every bit and selects, which
+        gives the same coordinates."""
+        acc = self.infinity(self._batch(p.x), p.x.device)
+        for bit in torch.as_tensor(bits).reshape(-1).tolist():
+            acc = self.dbl(acc)
+            if bit == 1:
+                acc = self.add(acc, p)
+        return acc
 
     # ---- affine conversion (device) ----
     def to_affine(self, p: JacPoint):

@@ -123,7 +123,7 @@ def load(path: Path) -> ctypes.CDLL:
     signatures = {
         "kzk_mont_mul": [P, P, P, LL, LL, I, P],
         "kzk_mont_pow": [P, P, LL, ctypes.POINTER(ctypes.c_uint32), I, I, P],
-        "kzk_window_scan": [P, P, P, P, P, LL, P, P, P, P, LL, LL, I, P],
+        "kzk_window_scan": [P, P, P, P, P, LL, P, P, P, P, LL, LL, I, I, P],
         "kzk_boundary_merge_level": [P, P, LL, P, P, P, LL, I, I, P],
         "kzk_bucket_walk": [P, P, LL, LL, LL, I, I, P],
         "kzk_point_sum": [P, P, LL, LL, I, I, P],

@@ -12,7 +12,8 @@ and 32 for G2 ("fq2", c0 limbs then c1 limbs) -- with the batch axes after
 the rows, so that neighbouring lanes are neighbouring addresses. Keys and
 payloads are int32.
 
-K4 `window_scan` (csrc/msm_scan.cu), K5 `boundary_merge` (csrc/msm_merge.cu),
+K4 `window_scan` and `window_scan_complete`, its two bodies
+(csrc/msm_scan.cu), K5 `boundary_merge` (csrc/msm_merge.cu),
 K6 `weighted_bucket_total` and K7 `horner_total` (csrc/msm_reduce.cu). K4
 and K5 write the bucket table they are given in place.
 """
@@ -121,11 +122,28 @@ def _stream(t: torch.Tensor) -> int:
 
 # ---- K4: window scan ----------------------------------------------------------
 
-def window_scan_plain(tag, keys, pay, table, tinf, tbl):
-    """The kernel's contract in torch (the complete mixed add, which agrees
-    with the kernel's wherever the kernel's precondition holds): per step,
-    the lanes whose run of a non-head bucket id < n_seg just ended write
-    its total into that column of `tbl`. See `window_scan`."""
+def window_scan_plain(tag, keys, pay, table, tinf, tbl, assume_distinct=True):
+    """The kernel's contract in torch: per step, the lanes whose run of a
+    non-head bucket id < n_seg just ended write its total into that column
+    of `tbl`. See `window_scan`.
+
+    Both group laws are complete; `assume_distinct` picks the one whose
+    coordinates are those of the body of that name, so that each body
+    equals its plain version limb for limb:
+
+    - True: curves/jacobian.py `add_mixed` (msm_sim.window_scan's), which
+      doubles the Jacobian accumulator where P == Q and keeps it where the
+      point is at infinity. The distinct body equals it wherever its
+      precondition holds (no run's partial sum equals the run's next point).
+    - False: the complete body's law, ops/cuda_curve.py `madd_plain`
+      (pallas_ec.madd_core without `assume_distinct`): P == Q doubles the
+      affine point, and an accumulator and a point both at infinity give
+      (x2, y2, 0). A run's first entry is the mixed add onto infinity,
+      which is the fresh affine point, so a lane takes the doubling only
+      inside a run.
+    Both laws give the same points."""
+    from . import cuda_curve  # it imports this module
+
     curve = curve_for(tag)
     f = curve.ops
     R = rows_for(tag)
@@ -157,9 +175,11 @@ def window_scan_plain(tag, keys, pay, table, tinf, tbl):
             inner = torch.nonzero(~same & ~is_head & (cur_key >= 0) & (cur_key < n_seg)).squeeze(1)
             tbl[:, cur_key[inner].long()] = point_to_planes(JacPoint(*(c[inner] for c in acc)), tag)
             is_head = is_head & same
-        grown = curve.add_mixed(acc, x2, y2, q_inf)
-        fresh = curve.from_affine(x2, y2, q_inf)
-        acc = curve.select(same, grown, fresh)
+        if assume_distinct:
+            grown = curve.add_mixed(acc, x2, y2, q_inf)
+            acc = curve.select(same, grown, curve.from_affine(x2, y2, q_inf))
+        else:
+            acc = cuda_curve.madd_plain(curve.select(same, acc, inf0), x2, y2, q_inf, tag)
         cur_key = k
     tail_key = torch.where(is_head, -1, cur_key)
     tail_pt = curve.select(~is_head, acc, curve.infinity((V,), dev))
@@ -168,8 +188,38 @@ def window_scan_plain(tag, keys, pay, table, tinf, tbl):
     return head_key, point_to_planes(head_pt, tag), tail_key.int(), point_to_planes(tail_pt, tag)
 
 
+def _scan_launch(wrapper, complete: bool, tag, keys, pay, table, tinf, tbl):
+    """Launch K4's body (`complete`: the one with the P == Q doubling) on
+    CUDA tensors, counting the launch on `wrapper`."""
+    name = "window_scan_complete" if complete else "window_scan"
+    _require_cuda(name, keys, pay, table, tinf, tbl)
+    _require_dtype(name, torch.int32, keys, pay, table, tbl)
+    _require_dtype(name, torch.bool, tinf)
+    R = rows_for(tag)
+    L, V = keys.shape
+    if (pay.shape != keys.shape or table.dim() != 2 or table.shape[1] != 2 * R
+            or tinf.shape != (table.shape[0],) or tbl.dim() != 2 or tbl.shape[0] != 3 * R):
+        raise ValueError(f"{name}: shape mismatch")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: the point table must be 16-byte aligned (the kernel reads rows as int4)")
+    dev = keys.device
+    hk = torch.empty(V, dtype=torch.int32, device=dev)
+    tk = torch.empty(V, dtype=torch.int32, device=dev)
+    hpt = torch.empty((3 * R, V), dtype=torch.int32, device=dev)
+    tpt = torch.empty((3 * R, V), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    wrapper.launches += 1
+    err = lib.kzk_window_scan(
+        keys.data_ptr(), pay.data_ptr(), table.data_ptr(), tinf.data_ptr(), tbl.data_ptr(), tbl.shape[1],
+        hk.data_ptr(), hpt.data_ptr(), tk.data_ptr(), tpt.data_ptr(),
+        L, V, int(tag == "fq2"), int(complete), _stream(keys),
+    )
+    _build.check(err, name)
+    return hk, hpt, tk, tpt
+
+
 @_build.counted
-def window_scan(tag, keys, pay, table, tinf, tbl):
+def window_scan(tag, keys, pay, table, tinf, tbl, assume_distinct=True):
     """Scan the sorted stream with V lanes; write the interior bucket totals
     into `tbl` in place.
 
@@ -187,36 +237,29 @@ def window_scan(tag, keys, pay, table, tinf, tbl):
     then overwritten by the whole-lane run); its tail is its last run, or
     key -1 and infinity if one run spans the lane.
 
-    Precondition of the kernel: no run's partial sum equals the next point
-    of its run (csrc/ec.cuh madd_core takes no P == Q doubling), which holds
-    for deduplicated tables of points with random discrete logs.
+    With `assume_distinct` (the default) the kernel's body takes no P == Q
+    doubling (csrc/ec.cuh madd_core). Its precondition: no run's partial
+    sum equals the next point of its run, which holds for deduplicated
+    tables of points with random discrete logs; where it fails the bucket
+    is wrong and nothing is raised. `assume_distinct=False` takes the
+    complete body, `window_scan_complete`, which has no precondition.
     """
+    if not assume_distinct:
+        return window_scan_complete(tag, keys, pay, table, tinf, tbl)
     if keys.device.type == "cpu":
         return window_scan_plain(tag, keys, pay, table, tinf, tbl)
-    _require_cuda("window_scan", keys, pay, table, tinf, tbl)
-    _require_dtype("window_scan", torch.int32, keys, pay, table, tbl)
-    _require_dtype("window_scan", torch.bool, tinf)
-    R = rows_for(tag)
-    L, V = keys.shape
-    if (pay.shape != keys.shape or table.dim() != 2 or table.shape[1] != 2 * R
-            or tinf.shape != (table.shape[0],) or tbl.dim() != 2 or tbl.shape[0] != 3 * R):
-        raise ValueError("window_scan: shape mismatch")
-    if table.data_ptr() % 16:
-        raise ValueError("window_scan: the point table must be 16-byte aligned (the kernel reads rows as int4)")
-    dev = keys.device
-    hk = torch.empty(V, dtype=torch.int32, device=dev)
-    tk = torch.empty(V, dtype=torch.int32, device=dev)
-    hpt = torch.empty((3 * R, V), dtype=torch.int32, device=dev)
-    tpt = torch.empty((3 * R, V), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    window_scan.launches += 1
-    err = lib.kzk_window_scan(
-        keys.data_ptr(), pay.data_ptr(), table.data_ptr(), tinf.data_ptr(), tbl.data_ptr(), tbl.shape[1],
-        hk.data_ptr(), hpt.data_ptr(), tk.data_ptr(), tpt.data_ptr(),
-        L, V, int(tag == "fq2"), _stream(keys),
-    )
-    _build.check(err, "window_scan")
-    return hk, hpt, tk, tpt
+    return _scan_launch(window_scan, False, tag, keys, pay, table, tinf, tbl)
+
+
+@_build.counted
+def window_scan_complete(tag, keys, pay, table, tinf, tbl):
+    """`window_scan` with the complete body (csrc/ec.cuh madd_complete: a
+    partial sum equal to the incoming point takes the affine doubling), for
+    tables that may hold one point in several rows. Its launches are
+    counted apart from the distinct body's."""
+    if keys.device.type == "cpu":
+        return window_scan_plain(tag, keys, pay, table, tinf, tbl, assume_distinct=False)
+    return _scan_launch(window_scan_complete, True, tag, keys, pay, table, tinf, tbl)
 
 
 # ---- K5: boundary merge -------------------------------------------------------

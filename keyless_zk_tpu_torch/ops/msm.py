@@ -150,18 +150,22 @@ def msm(
     *,
     curve: JacobianCurve,
     c: int | None = None,
+    assume_distinct: bool = True,
 ) -> JacPoint:
     """sum_i scalars[i] * P_i. Points affine (Montgomery limbs, int32),
     scalars standard-form (n, 16) int32 limbs. Returns one Jacobian point:
     `msm_batch` of a batch of one.
 
-    The points must be distinct with random discrete logs (a deduplicated
-    table): the scan takes no P == Q doubling (csrc/ec.cuh madd_core),
-    like the JAX package's default `assume_distinct`. The digit stream is
-    compacted to the next power of two at or above its nonzero count (a
-    host sync): keyless witnesses are ~94% bit-valued, whose digits vanish
-    in every window but the lowest."""
-    out = msm_batch(points_x, points_y, points_inf, scalars[None], curve=curve, c=c)
+    `assume_distinct` (the JAX package's default) skips the P == Q doubling
+    in the bucket scan (csrc/ec.cuh madd_core): sound for a deduplicated
+    table of points with random discrete logs. Pass False for tables that
+    may contain duplicate points: the scan then takes its complete body
+    (`cuda_msm.window_scan_complete`). The digit stream is compacted to
+    the next power of two at or above its nonzero count (a host sync):
+    keyless witnesses are ~94% bit-valued, whose digits vanish in every
+    window but the lowest."""
+    out = msm_batch(points_x, points_y, points_inf, scalars[None], curve=curve, c=c,
+                    assume_distinct=assume_distinct)
     return JacPoint(*(co[0] for co in out))
 
 
@@ -173,6 +177,7 @@ def msm_batch(
     *,
     curve: JacobianCurve,
     c: int | None = None,
+    assume_distinct: bool = True,
 ) -> JacPoint:
     """B MSMs over ONE point table: scalars (B, n, 16) -> JacPoint with a
     leading batch axis B (port of keyless_zk_tpu/ops/msm.py `msm_batch`).
@@ -184,7 +189,9 @@ def msm_batch(
     batch. The stream is compacted to the next power of two at or above
     the batch's nonzero digit count. Equal points of different elements
     land in different buckets, so the scan's skipped P == Q doubling stays
-    sound on a deduplicated table."""
+    sound on a deduplicated table; `assume_distinct=False` takes the
+    complete scan, as in `msm`. `_msm_small` is complete either way (K3's
+    complete mixed add)."""
     B, n = scalars.shape[0], scalars.shape[1]
     if n <= _SMALL_N:
         return _msm_small(points_x, points_y, points_inf, scalars, curve=curve)
@@ -193,10 +200,12 @@ def msm_batch(
     total = B * -(-SCALAR_BITS // cw) * n
     cap = min(_p2(max(_count_nonzero_digits(scalars, cw), 1)), _p2(total))
     v = min(_SCAN_LANES, max(1, -(-cap // _MIN_SLABS)))
-    return _msm_pippenger_fused(points_x, points_y, points_inf, scalars, tag=tag, c=cw, v=v, cap=cap)
+    return _msm_pippenger_fused(points_x, points_y, points_inf, scalars, tag=tag, c=cw, v=v, cap=cap,
+                                assume_distinct=assume_distinct)
 
 
-def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c: int, v: int, cap: int) -> JacPoint:
+def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c: int, v: int, cap: int,
+                         assume_distinct: bool = True) -> JacPoint:
     """Flat-stream Pippenger (port of msm._msm_pippenger_fused) over a batch
     of scalar vectors (B, n, 16) and one point table; returns B points (one
     point for (n, 16) scalars, the JAX function's `batch=None`).
@@ -207,7 +216,8 @@ def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c
     that sorts past the real entries, so one per-row sort groups the
     buckets and the compaction gathers the rows' real prefixes into the
     first `cap` stream slots. The stream, padded to whole lanes, runs
-    through K4 in one launch of `v` lanes, which writes every bucket that
+    through K4 in one launch of `v` lanes (its complete body unless
+    `assume_distinct`), which writes every bucket that
     lies inside a lane into the bucket table; the boundary merge (K5)
     writes the buckets that cross lanes into the same table; K6 reduces
     all B * Wn windows at once and K7 runs the B Horner chains in one
@@ -276,6 +286,7 @@ def _msm_pippenger_fused(points_x, points_y, points_inf, scalars, *, tag: str, c
         table,
         tinf,
         tbl,
+        assume_distinct=assume_distinct,
     )
 
     # the boundary sequence, (head, tail) per lane in order: K5 writes the

@@ -14,10 +14,10 @@ Differences from the reference are deliberate:
   where requests that arrive together are proven as one batch and no
   lock is taken.
 
-A jax-free copy of keyless_zk_tpu/service/prover_state.py, with two
-differences: a failed witness-engine build is an error (no Python witness
-path is taken instead), and a proof that fails its verification answers
-500 at once (the device work is not retried).
+A jax-free copy of keyless_zk_tpu/service/prover_state.py, with one
+difference: a failed witness-engine build is an error (no Python witness
+path is taken instead). As there, a proof that fails its verification is
+proven once more before the request answers 500.
 """
 
 from __future__ import annotations
@@ -196,6 +196,19 @@ class ProverServiceState:
 
     # ---- the prove pipeline (prover_handler.rs:48-152) --------------------
 
+    def _prove_device(self, w_np) -> tuple:
+        """One proof of the witness limbs: (proof, the prover's phase ms,
+        the size of the batch it rode in)."""
+        if self.batch_prover is not None:
+            # requests that arrive together coalesce into one batch; no
+            # global mutex (the limit of prover_state.rs:21 lifts here)
+            info: dict = {}
+            proof = self.batch_prover.prove(w_np, info=info)
+            return proof, info["phase_ms"], info["batch_size"]
+        with self.prove_lock:  # prover_handler.rs:266-268
+            proof = self.prover.prove(w_np)
+            return proof, dict(self.prover.phase_ms), 1
+
     def handle_prove(self, body: bytes) -> dict:
         if self.prover is None or self.witness_prog is None:
             raise InternalError("prover not initialized")
@@ -241,25 +254,21 @@ class ProverServiceState:
             w_np = self.witness_prog.witness_limbs(w64)
 
         with phase("generate_proof"):
-            if self.batch_prover is not None:
-                # requests that arrive together coalesce into one batch; no
-                # global mutex (the limit of prover_state.rs:21 lifts here)
-                info: dict = {}
-                proof = self.batch_prover.prove(w_np, info=info)
-                prover_phase_ms, batch_size = info["phase_ms"], info["batch_size"]
-            else:
-                with self.prove_lock:  # prover_handler.rs:266-268
-                    proof = self.prover.prove(w_np)
-                    prover_phase_ms = dict(self.prover.phase_ms)
-                batch_size = 1
+            proof, prover_phase_ms, batch_size = self._prove_device(w_np)
 
         with phase("deserialize_proof"):
             proof_json = proof.to_json_dict()
 
         with phase("verify_proof"):  # defense in depth (prover_handler.rs:329-336)
             if not verify_groth16(self.vk, [public_inputs_hash], proof_json):
+                # the re-verify is there to catch a transient device fault:
+                # run the device work once more before failing the request
                 PROOFS_TOTAL.inc(outcome="verify_failed")
-                raise InternalError("generated proof failed verification")
+                proof, prover_phase_ms, batch_size = self._prove_device(w_np)
+                proof_json = proof.to_json_dict()
+                if not verify_groth16(self.vk, [public_inputs_hash], proof_json):
+                    PROOFS_TOTAL.inc(outcome="verify_failed")
+                    raise InternalError("generated proof failed verification")
 
         with phase("training_wheels_sign"):
             msg = proof_and_statement_bytes(proof_json, public_inputs_hash)

@@ -92,6 +92,25 @@ def test_to_affine_bitwise(jc, tc, group, gen):
     assert tc.decode_jacobian(tp) == [None if p is None else group.add(p, p) for p in pts]
 
 
+@pytest.mark.parametrize("jc,tc,group,gen", CASES, ids=IDS)
+def test_neg_and_scalar_mul_bits_bitwise(jc, tc, group, gen):
+    """`neg` and `scalar_mul_bits` (MSB-first double-and-add, one 0/1 bit
+    array for the batch) give the JAX package's Jacobian coordinates, and
+    the host curve's -P and k * P; a point at infinity stays there."""
+    rng = np.random.default_rng(14)
+    pts = _points(group, gen, rng, 3) + [None]
+    tp = _jac(tc, pts)
+    jp = jjac.JacPoint(*(_to_jax(c) for c in tp))
+    assert _eq(jc.neg(jp), tc.neg(tp))
+    assert tc.decode_jacobian(tc.neg(tp)) == [None if p is None else group.neg(group.add(p, p)) for p in pts]
+    k = int(rng.integers(1, 1 << 20)) | (1 << 20)  # 21 bits, the top one set
+    bits = np.array([(k >> i) & 1 for i in range(20, -1, -1)], dtype=np.int32)
+    got = tc.scalar_mul_bits(tp, torch.from_numpy(bits))
+    assert _eq(jc.scalar_mul_bits(jp, jnp.asarray(bits)), got)
+    assert tc.decode_jacobian(got) == [None if p is None else group.mul(group.add(p, p), k) for p in pts]
+    assert tc.decode_jacobian(tc.scalar_mul_bits(tp, np.zeros(3, dtype=np.int32))) == [None] * len(pts)
+
+
 def test_ref_curve_copy_matches_jax_package():
     """The jax-free host copy is the same curve (generators, twist, law)."""
     assert ref_curve.G1_GEN == jref.G1_GEN and ref_curve.G2_GEN == jref.G2_GEN
