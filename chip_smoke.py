@@ -10,7 +10,12 @@ Phases, in order; any failure exits non-zero:
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compile the CUDA kernels from keyless_zk_tpu_torch/csrc, and
    print ptxas's registers, spill bytes and stack frame of K1's mont_pow
-   and the K3-K7 kernels from build.log;
+   and the K3-K7 kernels from build.log; then the port's bench
+   (`python -m keyless_zk_tpu_torch.bench`) in a subprocess with
+   BENCH_QUICK=1: its devices child (the kernels already built) and the
+   headline metric msm_g1_2^16, whose record must have a value and
+   "correct": true (its MSM checked against the points' discrete logs);
+   the record is printed on its own line;
 3. the Montgomery product kernel (K1) against its plain PyTorch version on
    the card, Fr and Fq at 2^22 elements with the main path's broadcasts
    and Fq at the decode's n = 4 and n = 1 (per launch), with both times
@@ -70,7 +75,7 @@ Phases, in order; any failure exits non-zero:
    then the prover CLI: the key's zkey, witness and vk written under
    build/chip_smoke/cli, `python -m keyless_zk_tpu_torch.groth16.cli prove`
    in a subprocess (exit 0, "verified: true") and `verify` on its output;
-   then the circom route at 2^20 constraints: the chain a == b^m with an
+   then the circom route at 2^19 constraints: the chain a == b^m with an
    is_zero and a circom-form Num2Bits(254) of a chain wire appended to its
    circom-order R1CS, written as .r1cs, input.json and .sym under
    build/chip_smoke/circom; `witness_from_input_json` with a cold program
@@ -1511,7 +1516,9 @@ def cli_checks(res, w: list, dev) -> None:
 
 CIRCOM_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "circom"
 CEREMONY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ceremony"
-CIRCOM_DOMAIN_POW = 20
+# the script's 1200 s hold the chain at 2^19: at 2^20, with the bench phase,
+# the script took 1135 s on the H100's host
+CIRCOM_DOMAIN_POW = 19
 NUM2BITS = 254
 
 
@@ -1559,7 +1566,7 @@ def circom_circuit(domain_pow: int):
 
 
 def circom_route(dev, counts: dict) -> None:
-    """The circom route at 2^20 constraints: the circuit's .r1cs (the port's
+    """The circom route at 2^CIRCOM_DOMAIN_POW constraints: the circuit's .r1cs (the port's
     save_r1cs), input.json and .sym; `witness_from_input_json` in-process
     with a cold program cache (served by the compiled program, never by the
     Python solver; equal to the native witness under the permutation, its
@@ -2149,21 +2156,6 @@ SERVICE_SEEDS = (11, 12, 13, 14, 15)  # three sequential requests, then two at o
 BATCH_SERVICE_SEEDS = (16, 17, 18, 19)  # four at once through a BatchProver
 
 
-def decode_response_proof(payload: dict) -> dict:
-    """A POST /v0/prove response's compressed points -> snarkjs proof JSON."""
-    from keyless_zk_tpu_torch.tooling.onchain_vk import decompress_g1, decompress_g2
-
-    a = decompress_g1(bytes(payload["proof"]["a"]))
-    b = decompress_g2(bytes(payload["proof"]["b"]))
-    c = decompress_g1(bytes(payload["proof"]["c"]))
-    return {
-        "pi_a": [str(a[0]), str(a[1]), "1"],
-        "pi_b": [[str(b[0][0]), str(b[0][1])], [str(b[1][0]), str(b[1][1])], ["1", "0"]],
-        "pi_c": [str(c[0]), str(c[1]), "1"],
-        "protocol": "groth16",
-    }
-
-
 def http_call(port: int, method: str, path: str, body: bytes = b"") -> tuple:
     """(status, body bytes, wall ms) of one request to 127.0.0.1:port."""
     import http.client
@@ -2187,6 +2179,7 @@ def check_prove_response(state, vk: dict, tj, status: int, data: bytes, label: s
     from keyless_zk_tpu_torch.groth16 import verify_groth16
     from keyless_zk_tpu_torch.input_processing.public_inputs_hash import compute_public_inputs_hash
     from keyless_zk_tpu_torch.service.bcs import GROTH16_PROOF_AND_STATEMENT_SEED, ephemeral_signature_from_bcs
+    from keyless_zk_tpu_torch.tools.full_prove import response_proof_json
     from keyless_zk_tpu_torch.utils import ed25519
 
     check(status == 200, f"{label}: POST /v0/prove answered {status}: {data[:300]!r}")
@@ -2195,7 +2188,7 @@ def check_prove_response(state, vk: dict, tj, status: int, data: bytes, label: s
     pih = int.from_bytes(pih_bytes, "little")
     check(pih == compute_public_inputs_hash(state.circuit_config, tj.vi, state.config.max_committed_epk_bytes),
           f"{label}: the response's public-inputs hash is not the JWT's")
-    proof_ok = verify_groth16(vk, [pih], decode_response_proof(payload))
+    proof_ok = verify_groth16(vk, [pih], response_proof_json(payload))
     msg = (GROTH16_PROOF_AND_STATEMENT_SEED + bytes(payload["proof"]["a"]) + bytes(payload["proof"]["b"])
            + bytes(payload["proof"]["c"]) + pih_bytes)
     sig = ephemeral_signature_from_bcs(bytes.fromhex(payload["training_wheels_signature"]))
@@ -2352,6 +2345,27 @@ def keyless_path(dev, records: dict, counts: dict) -> None:
     shutil.rmtree(SETUP_ROOT)  # ~10 GB of setup files; a failed run keeps them
 
 
+def bench_quick() -> None:
+    """The port's bench with BENCH_QUICK=1 in a subprocess: the devices
+    child and the headline msm_g1_2^16, whose record must carry a value and
+    "correct": true; that record printed on its own line. BENCH_BUDGET_S
+    bounds the bench's own children, which run in their own sessions."""
+    import os
+
+    env = dict(os.environ, BENCH_QUICK="1", BENCH_BUDGET_S="240")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "keyless_zk_tpu_torch.bench"], cwd=Path(__file__).resolve().parent,
+                         env=env, capture_output=True, text=True, timeout=300)
+    records = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    log(f"bench (BENCH_QUICK=1): exit {out.returncode} in {time.perf_counter() - t0:.1f} s; "
+        f"devices {json.dumps(records[0]) if records else None}")
+    check(out.returncode == 0 and records, f"the bench failed: {out.stderr[-2000:]}")
+    head = records[-1]
+    print(json.dumps(head), flush=True)
+    check(head.get("metric") == "msm_g1_2^16" and head.get("value") is not None and head.get("correct") is True,
+          f"the bench's headline record has no checked value: {head}")
+
+
 def timed_proof(prover, witness, r, s):
     """One proof and its host wall ms (it ends in the decode's readbacks)."""
     t0 = time.perf_counter()
@@ -2397,6 +2411,7 @@ def main() -> int:
         log("ptxas (K1 mont_pow, K3-K7): " + json.dumps(report))
         check(all(any(k.startswith(name + " ") for k in report) for name in PTXAS_KERNELS),
               "build.log lacks the ptxas report of a K1 mont_pow or K3-K7 kernel")
+        bench_quick()
         mont_mul_checks(dev, records)
         mont_pow_checks(dev, records)
         k3_checks(dev, records)
