@@ -34,13 +34,14 @@ Phases, in order; any failure exits non-zero:
    mixed add also with one affine point for the whole batch
    (nq == 1), planted as P == Q and P == -Q in some lanes, and at
    infinity; then K4's complete body (`window_scan_complete`, the scan
-   with the P == Q doubling) on planted 2^16-row tables, G1 and G2, each
+   with no precondition: on G1 a branch-free projective law, on G2 the
+   P == Q doubling) on planted 2^16-row tables, G1 and G2, each
    random point in four consecutive rows with a shared nonzero lowest
    digit, some rows at infinity: `msm(..., assume_distinct=False)` equal
    to a double-and-add over K3's complete mixed add, and on the stream
    that msm built the complete body equal to its plain version (its
-   bound counts the lanes that took the doubling) and the distinct body
-   not;
+   bound counts the P == Q lanes, found in the stream, as affine
+   doublings) and the distinct body not;
 5. a small proof (synthetic key at domain 2^10) on the card, which runs the
    matmul NTT, and on the CPU through the plain versions, which runs the
    butterfly NTT, with the same r and s: the proofs must be equal, and
@@ -734,30 +735,36 @@ def scan_check(records, args, note) -> None:
 @contextlib.contextmanager
 def counting_doublings(tag: str, out: list):
     """While the complete scan's plain version runs, append to `out` the
-    lanes of each of its mixed adds that take the P == Q doubling: the
-    accumulator and the affine point both finite and equal (qx z^2 == x,
+    P == Q lanes of each of its mixed adds, from the stream's data whatever
+    the law does with them: the accumulator and the affine point both finite
+    and equal. G1's law (`madd_proj_plain`) holds a projective accumulator
+    (qx z == x, qy z == y), G2's (`madd_plain`) a Jacobian one (qx z^2 == x,
     qy z^3 == y). The plain version adds onto infinity where a run starts,
     so only lanes inside a run count."""
     from keyless_zk_tpu_torch.ops import cuda_curve
     from keyless_zk_tpu_torch.ops.cuda_msm import curve_for
 
-    real = cuda_curve.madd_plain
+    name = "madd_proj_plain" if tag == "fq" else "madd_plain"
+    real = getattr(cuda_curve, name)
     f = curve_for(tag).ops
 
     def eq(a, b):
         return (a == b).reshape(a.shape[0], -1).all(1)
 
     def counted(p, qx, qy, q_inf, tag_):
-        z2 = f.sqr(p.z)
-        same = eq(f.mul(qx, z2), p.x) & eq(f.mul(qy, f.mul(z2, p.z)), p.y)
+        if tag == "fq":
+            same = eq(f.mul(qx, p.z), p.x) & eq(f.mul(qy, p.z), p.y)
+        else:
+            z2 = f.sqr(p.z)
+            same = eq(f.mul(qx, z2), p.x) & eq(f.mul(qy, f.mul(z2, p.z)), p.y)
         out.append(int((same & ~f.is_zero(p.z) & ~q_inf).sum()))
         return real(p, qx, qy, q_inf, tag_)
 
-    cuda_curve.madd_plain = counted
+    setattr(cuda_curve, name, counted)
     try:
         yield
     finally:
-        cuda_curve.madd_plain = real
+        setattr(cuda_curve, name, real)
 
 
 def complete_scan_check(records, args, note, *, distinct_differs: bool | None) -> int:

@@ -192,4 +192,75 @@ static __device__ __noinline__ Jac<Fq2> madd_complete(const Jac<Fq2>& p, const F
 }
 static __device__ __noinline__ Jac<Fq2> add_core(const Jac<Fq2>& p, const Jac<Fq2>& q) { return add_core<Fq2>(p, q); }
 
+// ---- homogeneous projective coordinates: K4's complete body (G1) -----------
+// (X : Y : Z) is the affine point (X / Z, Y / Z); infinity is (0 : Y : 0),
+// (0 : 1 : 0) where a run starts from it. The law is Renes, Costello and
+// Batina, "Complete addition formulas for prime order elliptic curves"
+// (2016), Algorithm 8: the mixed add for a = 0 in 11 products and two
+// multiplications by 3b, with no branch. It is complete for P == Q, for
+// P == -Q and for P at infinity; an affine Q cannot be infinity, so Q at
+// infinity is a select. The plain version is ops/cuda_curve.py
+// `madd_proj_plain`, step for step.
+
+template <class F>
+struct Proj {
+  F x, y, z;
+};
+
+// 3b for y^2 = x^3 + 3 (G1): 9 a = 8 a + a, four additions
+__device__ __forceinline__ Fp<FqMod> mul_b3(const Fp<FqMod>& a) {
+  Fp<FqMod> a2 = add(a, a);
+  Fp<FqMod> a4 = add(a2, a2);
+  return add(add(a4, a4), a);
+}
+
+// (X : Y : Z) -> Jacobian (X Z, Y Z^2, Z), the form K5 and K6 read:
+// X Z / Z^2 = X / Z and Y Z^2 / Z^3 = Y / Z; infinity (Z = 0) -> z = 0
+template <class F>
+__device__ __forceinline__ Jac<F> proj_to_jac(const Proj<F>& p) {
+  return {gmul(p.x, p.z), gmul(p.y, gsqr(p.z)), p.z};
+}
+
+// Algorithm 8, p + (x2, y2) (steps numbered as in the paper), with
+// proj_to_jac(p) folded into three of its products in the lanes where
+// `fold`: there steps 1, 2 and 8 take X Z, Z^2 and Y Z^2 (into `pj`)
+// instead, and the sum returned is not a point. A lane whose run has just
+// ended thus converts its total inside the same 11 products that its
+// warp's other lanes add with, where a conversion of its own would cost
+// the warp three more products at most steps.
+template <class F>
+__device__ __forceinline__ Proj<F> madd_proj(const Proj<F>& p, const F& x2, const F& y2, bool q_inf, bool fold,
+                                             Jac<F>& pj) {
+  F t0 = gmul(p.x, select(fold, p.z, x2));                  // 1: X1 X2
+  F t1 = gmul(select(fold, p.z, p.y), select(fold, p.z, y2));  // 2: Y1 Y2
+  F t3 = add(x2, y2);                                       // 3
+  F t4 = add(p.x, p.y);                                     // 4
+  t3 = gmul(t3, t4);                                        // 5
+  t4 = add(t0, t1);                                         // 6
+  t3 = sub(t3, t4);                                         // 7
+  t4 = gmul(select(fold, p.y, y2), select(fold, t1, p.z));  // 8: Y2 Z1
+  pj = {t0, t4, p.z};
+  t4 = add(t4, p.y);       // 9
+  F y3 = gmul(x2, p.z);    // 10
+  y3 = add(y3, p.x);       // 11
+  F x3 = add(t0, t0);      // 12
+  t0 = add(x3, t0);        // 13
+  F t2 = mul_b3(p.z);      // 14
+  F z3 = add(t1, t2);      // 15
+  t1 = sub(t1, t2);        // 16
+  y3 = mul_b3(y3);         // 17
+  x3 = gmul(t4, y3);       // 18
+  t2 = gmul(t3, t1);       // 19
+  x3 = sub(t2, x3);        // 20
+  y3 = gmul(y3, t0);       // 21
+  t1 = gmul(t1, z3);       // 22
+  y3 = add(t1, y3);        // 23
+  t0 = gmul(t0, t3);       // 24
+  z3 = gmul(z3, t4);       // 25
+  z3 = add(z3, t0);        // 26
+  Proj<F> out = {x3, y3, z3};
+  if (q_inf) out = p;
+  return out;
+}
+
 }  // namespace kzk

@@ -14,7 +14,7 @@
 // compiles the C form into the same wide multiply-adds (K1's kernel is 704
 // SASS instructions that way, 760 this way), K4's G1 scan and K6 time the
 // same, K7 runs 7% faster this way and K4's G2 scan 16% slower
-// (PERF.md). The product is not what limits the MSM kernels.
+// (PERF.md), so K4's complete body takes the C form (`mul_wide`) for G2.
 //
 // At the kernel boundary an element is 16 limbs of 16 bits held in int32
 // (the JAX layout the port keeps at every public function). `Field<F>::load`
@@ -255,6 +255,42 @@ __device__ __noinline__ Fp<M> gmul(const Fp<M>& a, const Fp<M>& b) {
 template <class M>
 __device__ __forceinline__ Fp<M> gsqr(const Fp<M>& a) {
   return gmul(a, a);
+}
+
+// The same product in 64-bit C arithmetic (the port's first form,
+// tools/kernel_variants.py `wide`): a 64-bit running sum per word of each
+// CIOS row. K4's complete body takes it for G2 (msm_scan.cu `scan_mul`),
+// where it runs faster than `mul` (PERF.md).
+template <class M>
+__device__ __forceinline__ Fp<M> mul_wide(const Fp<M>& a, const Fp<M>& b) {
+  uint32_t t[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      c += (uint64_t)a.v[j] * b.v[i] + t[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[8];
+    t[8] = (uint32_t)c;
+    t[9] = (uint32_t)(c >> 32);
+    uint32_t m = t[0] * M::n0;
+    c = ((uint64_t)m * M::p(0) + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; j++) {
+      c += (uint64_t)m * M::p(j) + t[j];
+      t[j - 1] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[8];
+    t[7] = (uint32_t)c;
+    t[8] = t[9] + (uint32_t)(c >> 32);
+  }
+  return fp_csub<M>(t, t[8]);
 }
 
 // ---- row-major (n, 16) int32 records: 64 bytes, four 16-byte vectors ----------

@@ -6,8 +6,9 @@
 // consecutive stream entries (slab t of lane l is entry t*V + l of the
 // slab-major stream), one mixed add per step, and each lane reports its
 // first (head) and last (tail) run. The Pallas kernel has two bodies, with
-// and without the P == Q doubling (`assume_distinct`); so does this one
-// (`scan_lane`), as two kernels.
+// and without the P == Q doubling (`assume_distinct`); so does this one, as
+// two kernels: `window_scan_kernel` (the distinct body, `scan_lane`) and
+// `window_scan_complete_kernel` (the complete body, `scan_ring`).
 //
 // The TPU kernel streams every slab's pre-add accumulator to an emit buffer,
 // and the orchestrator gathers the interior bucket totals from it. Here a
@@ -27,16 +28,33 @@
 // itself (the JAX orchestrator gathers into a slab-major copy first).
 //
 // Bound on the H100: integer multiply-adds, the mixed add's 11 Montgomery
-// products per entry for G1 (33 Fq products for G2), in carry chains
-// (field.cuh). The memory side is 8 bytes of key and payload per entry
-// (coalesced: neighbouring lanes are neighbouring threads and addresses),
+// products per entry for G1 (29 Fq products for G2), in carry chains
+// (field.cuh; G2's complete body in 64-bit C). The memory side is 8 bytes
+// of key and payload per entry (coalesced: neighbouring lanes are
+// neighbouring threads and addresses),
 // the random 128-byte (G1) or 256-byte (G2) row gather, and one bucket
 // write per interior bucket. The orchestrator (ops/msm.py) launches one
-// wave of lanes for the whole stream. The complete body adds the affine
-// doubling (6 Fq products for G1) only in the lanes where P == Q, behind
-// madd_complete's branch: on distinct points it costs what the distinct
-// body does; where doublings crowd into a few lanes, those lanes set the
-// wave's length (PERF.md).
+// wave of lanes for the whole stream, so the slowest warps set its time.
+//
+// The complete body (`scan_law`, redesigned for Hopper; `scan_lane<F,
+// true>`, madd_complete in the distinct body's loop, is the first one,
+// which tools/kernel_variants.py `pr11` rebuilds for comparison):
+// - G1 carries its accumulator in homogeneous projective coordinates and
+//   adds by ec.cuh `madd_proj`, a complete law with no branch, so a lane
+//   where P == Q costs what every other lane costs: in the first body the
+//   affine doubling behind madd_complete's branch cost each warp that held
+//   such a lane 6 more products, and planted streams crowd those lanes into
+//   a few warps, which set the wave's length. A run's total leaves the lane
+//   in Jacobian coordinates (the form K5 and K6 read), converted inside the
+//   products of the step after the run ends (madd_proj's `fold`).
+// - G2 keeps madd_complete and its branch: the projective law over Fq2
+//   costs 39 Fq products a step against 29 (its two multiplications by 3b'
+//   are full Fq2 products), and ran slower (`g2_proj`). Its Fq product is
+//   field.cuh `mul_wide`, by value (`Fq2S` below).
+// - Keys and payloads are read two steps ahead and infinity flags one step
+//   ahead; the row is read where it is used. A ring that copied each next
+//   row into shared memory with cp.async a step ahead ran 2-3x slower on
+//   the planted streams (`ring`, PERF.md), so there is none.
 
 #include <cuda_runtime.h>
 
@@ -61,7 +79,9 @@ __device__ __forceinline__ void load_affine(const int4* row, Fq2& x, Fq2& y) {
 // doubling, the body of pallas_msm `_scan_kernel_body(F, assume_distinct=
 // True)`) or madd_complete (its `assume_distinct=False` body: a partial sum
 // equal to the incoming point takes the affine doubling, behind a branch
-// that only the lanes it fires in pay for).
+// that only the lanes it fires in pay for). The distinct body; with
+// `Complete`, the first complete body, which only tools/kernel_variants.py
+// builds now.
 template <class F, bool Complete>
 __device__ __forceinline__ void scan_lane(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
                                           const int32_t* __restrict__ table, const uint8_t* __restrict__ tinf,
@@ -128,6 +148,202 @@ window_scan_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__
   scan_lane<F, false>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
 }
 
+// ---- the complete body ---------------------------------------------------------
+
+namespace {
+
+// K4's complete body's G2 coordinates: field.cuh's Fq2 (Karatsuba, 3 Fq
+// products; squares 2) on an Fq product in 64-bit C arithmetic (field.cuh
+// `mul_wide`) that takes its operands by value, as K3's `k3_mul` does
+// (csrc/curve_ops.cu), where `gmul` passes references through the
+// local-memory stack
+__device__ __noinline__ Fp<FqMod> scan_mul(Fp<FqMod> a, Fp<FqMod> b) { return mul_wide(a, b); }
+
+struct Fq2S {
+  Fp<FqMod> c0, c1;
+};
+
+__device__ __forceinline__ Fq2S add(const Fq2S& a, const Fq2S& b) {
+  return {kzk::add(a.c0, b.c0), kzk::add(a.c1, b.c1)};
+}
+__device__ __forceinline__ Fq2S sub(const Fq2S& a, const Fq2S& b) {
+  return {kzk::sub(a.c0, b.c0), kzk::sub(a.c1, b.c1)};
+}
+__device__ __forceinline__ Fq2S neg(const Fq2S& a) { return {kzk::neg(a.c0), kzk::neg(a.c1)}; }
+__device__ __forceinline__ bool is_zero(const Fq2S& a) { return kzk::is_zero(a.c0) && kzk::is_zero(a.c1); }
+__device__ __forceinline__ Fq2S select(bool c, const Fq2S& a, const Fq2S& b) {
+  return {kzk::select(c, a.c0, b.c0), kzk::select(c, a.c1, b.c1)};
+}
+__device__ __forceinline__ Fq2S gmul(const Fq2S& a, const Fq2S& b) {
+  const Fp<FqMod> t0 = scan_mul(a.c0, b.c0);
+  const Fp<FqMod> t1 = scan_mul(a.c1, b.c1);
+  const Fp<FqMod> t2 = scan_mul(kzk::add(a.c0, a.c1), kzk::add(b.c0, b.c1));
+  return {kzk::sub(t0, t1), kzk::sub(kzk::sub(t2, t0), t1)};
+}
+__device__ __forceinline__ Fq2S gsqr(const Fq2S& a) {
+  const Fp<FqMod> re = scan_mul(kzk::add(a.c0, a.c1), kzk::sub(a.c0, a.c1));
+  const Fp<FqMod> t = scan_mul(a.c0, a.c1);
+  return {re, kzk::add(t, t)};
+}
+
+}  // namespace
+
+namespace kzk {
+template <>
+struct Field<Fq2S> {
+  static constexpr int rows = 32;
+  __device__ __forceinline__ static Fq2S zero() { return {fp_zero<FqMod>(), fp_zero<FqMod>()}; }
+  __device__ __forceinline__ static Fq2S one() { return {fp_one<FqMod>(), fp_zero<FqMod>()}; }
+  __device__ __forceinline__ static void store(int32_t* p, long long stride, const Fq2S& a) {
+    Field<Fq2>::store(p, stride, Fq2{a.c0, a.c1});
+  }
+};
+}  // namespace kzk
+
+namespace {
+
+// a call, as ec.cuh's G2 group law is (its loop builds in seconds)
+__device__ __noinline__ Jac<Fq2S> madd_complete(const Jac<Fq2S>& p, const Fq2S& x2, const Fq2S& y2, bool q_inf) {
+  return kzk::madd_complete<Fq2S>(p, x2, y2, q_inf);
+}
+
+__device__ __forceinline__ void load_affine(const int4* row, Fq2S& x, Fq2S& y) {
+  x = {kzk::load_row<FqMod>(row), kzk::load_row<FqMod>(row + 4)};
+  y = {kzk::load_row<FqMod>(row + 8), kzk::load_row<FqMod>(row + 12)};
+}
+
+}  // namespace
+
+// The complete body's group laws, as the accumulator a lane carries:
+// `start` a run at an affine point, `step` add the next one where the run
+// goes on (`same`), `to_jac` give a run's total in Jacobian coordinates.
+// A law that `folds` gives, in the lanes where the run ended at the step
+// before (`ended`), that total as `done` from inside its step; the others
+// leave `done` alone, and the scan writes the total out before the step.
+template <class F>
+struct JacLaw {  // madd-2007-bl, the affine doubling behind a branch (G2)
+  using Acc = Jac<F>;
+  static constexpr bool folds = false;
+  static __device__ __forceinline__ Acc start(const F& x2, const F& y2, bool q_inf) {
+    return {x2, y2, q_inf ? Field<F>::zero() : Field<F>::one()};
+  }
+  static __device__ __forceinline__ Acc step(const Acc& acc, const F& x2, const F& y2, bool q_inf, bool same,
+                                             bool ended, Jac<F>& done) {
+    return same ? madd_complete(acc, x2, y2, q_inf) : acc;
+  }
+  static __device__ __forceinline__ Jac<F> to_jac(const Acc& acc) { return acc; }
+};
+
+template <class F>
+struct ProjLaw {  // Renes-Costello-Batina Algorithm 8, branch-free (G1)
+  using Acc = Proj<F>;
+  static constexpr bool folds = true;
+  static __device__ __forceinline__ Acc start(const F& x2, const F& y2, bool q_inf) {
+    return {q_inf ? Field<F>::zero() : x2, q_inf ? Field<F>::one() : y2,
+            q_inf ? Field<F>::zero() : Field<F>::one()};
+  }
+  // every lane's step is same or ended (t > 0), so the warp takes the 11
+  // products whenever one of its lanes goes on, and the lanes that ended
+  // convert inside them; a warp in which every run ended converts alone
+  static __device__ __forceinline__ Acc step(const Acc& acc, const F& x2, const F& y2, bool q_inf, bool same,
+                                             bool ended, Jac<F>& done) {
+    if (__any_sync(__activemask(), same)) return madd_proj(acc, x2, y2, q_inf, ended, done);
+    if (ended) done = proj_to_jac(acc);
+    return acc;
+  }
+  static __device__ __forceinline__ Jac<F> to_jac(const Acc& acc) { return proj_to_jac(acc); }
+};
+
+// the complete body's coordinates and law per group
+template <class F>
+struct Complete;
+
+template <>
+struct Complete<Fp<FqMod>> {
+  using Coord = Fp<FqMod>;
+  using Law = ProjLaw<Coord>;
+};
+
+template <>
+struct Complete<Fq2> {
+  using Coord = Fq2S;
+  using Law = JacLaw<Coord>;
+};
+
+constexpr long long kRowMask = (1 << 30) - 1;
+
+// One lane's walk with the law `Law`: `scan_lane`'s contract. Each step's
+// key and payload are read two steps ahead and its infinity flag one step
+// ahead, so that no step waits on them; its row is read where it is used.
+template <class F, class Law>
+__device__ __forceinline__ void scan_law(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
+                                         const int32_t* __restrict__ table, const uint8_t* __restrict__ tinf,
+                                         int32_t* __restrict__ tbl, long long n_seg, int32_t* __restrict__ hk,
+                                         int32_t* __restrict__ hpt, int32_t* __restrict__ tk,
+                                         int32_t* __restrict__ tpt, long long L, long long V, long long l) {
+  typename Law::Acc acc = Law::start(Field<F>::zero(), Field<F>::zero(), true);
+  int cur_key = 0, head_key = -2;
+  bool is_head = false;
+  store_jac(hpt, V, l, jac_infinity<F>());
+  int k_now = keys[l], pw_now = pay[l];  // entry t; L >= 1
+  int k_next = 0, pw_next = 0;           // entry t + 1
+  if (L > 1) {
+    k_next = keys[V + l];
+    pw_next = pay[V + l];
+  }
+  bool inf_now = tinf[pw_now & kRowMask] != 0, inf_next = false;
+  for (long long t = 0; t < L; t++) {
+    if (t + 1 < L) inf_next = tinf[pw_next & kRowMask] != 0;
+    int k_after = 0, pw_after = 0;
+    if (t + 2 < L) {
+      k_after = keys[(t + 2) * V + l];
+      pw_after = pay[(t + 2) * V + l];
+    }
+    F x2, y2;
+    load_affine(reinterpret_cast<const int4*>(table + (pw_now & kRowMask) * 2 * Field<F>::rows), x2, y2);
+    if ((pw_now >> 30) & 1) y2 = neg(y2);
+
+    const bool same = t > 0 && k_now == cur_key;
+    const bool ended = t > 0 && !same;  // the run of cur_key ended at slab t - 1
+    auto end_run = [&](const Jac<F>& total) {
+      if (is_head) {  // the lane's first run: park it
+        head_key = cur_key;
+        store_jac(hpt, V, l, total);
+      } else if (cur_key >= 0 && cur_key < n_seg) {  // interior: its bucket's total
+        store_jac(tbl, n_seg, cur_key, total);
+      }
+    };
+    if constexpr (!Law::folds) {
+      if (ended) end_run(Law::to_jac(acc));
+    }
+    Jac<F> done;
+    const typename Law::Acc grown = Law::step(acc, x2, y2, inf_now, same, ended, done);
+    if constexpr (Law::folds) {
+      if (ended) end_run(done);
+    }
+    is_head = t == 0 || (is_head && same);
+    acc = same ? grown : Law::start(x2, y2, inf_now);
+    cur_key = k_now;
+    k_now = k_next;
+    pw_now = pw_next;
+    inf_now = inf_next;
+    k_next = k_after;
+    pw_next = pw_after;
+  }
+  const Jac<F> last = Law::to_jac(acc);
+  if (is_head) {  // one run spans the whole lane: it is the head
+    hk[l] = cur_key;
+    store_jac(hpt, V, l, last);
+    tk[l] = -1;
+    store_jac(tpt, V, l, jac_infinity<F>());
+  } else {
+    hk[l] = head_key;
+    tk[l] = cur_key;
+    store_jac(tpt, V, l, last);
+  }
+}
+
+// F: the group's coordinate field (Fp<FqMod> or Fq2)
 template <class F>
 __global__ void __launch_bounds__(128)
 window_scan_complete_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
@@ -137,7 +353,8 @@ window_scan_complete_kernel(const int32_t* __restrict__ keys, const int32_t* __r
                             long long L, long long V) {
   long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (l >= V) return;
-  scan_lane<F, true>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
+  using C = Complete<F>;
+  scan_law<typename C::Coord, typename C::Law>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
 }
 
 template <class F>
@@ -155,8 +372,8 @@ static void launch(const void* keys, const void* pay, const void* table, const v
 // keys, pay: (L, V) int32 slab-major (pay = table row | negate << 30);
 // table: (n+1, 2R) int32 affine x||y limb rows; tinf: (n+1,) uint8.
 // tbl: (3R, n_seg) bucket table, updated in place at the interior buckets;
-// hk, tk: (V,); hpt, tpt: (3R, V). complete: the body with the P == Q
-// doubling (madd_complete) instead of madd_core's.
+// hk, tk: (V,); hpt, tpt: (3R, V). complete: the complete body (no
+// precondition) instead of the distinct one.
 extern "C" int kzk_window_scan(const void* keys, const void* pay, const void* table, const void* tinf, void* tbl,
                                long long n_seg, void* hk, void* hpt, void* tk, void* tpt, long long L,
                                long long V, int g2, int complete, void* stream) {

@@ -24,6 +24,11 @@ Plain versions, equal to the kernels in Jacobian coordinates:
   `add`, which share csrc/ec.cuh's formulas and selects (dbl-2009-l,
   add-2007-bl). Their infinity representatives can differ from the JAX
   kernels' (both inputs at infinity); as affine points all agree.
+
+K4's complete body (csrc/msm_scan.cu) adds on G1 in homogeneous
+projective coordinates; `madd_proj_plain` and `proj_to_jac_plain` are its
+law and its conversion to the Jacobian form it writes (csrc/ec.cuh
+`madd_proj`, `proj_to_jac`), equal to them coordinate for coordinate.
 """
 
 from __future__ import annotations
@@ -80,6 +85,69 @@ def madd_plain(p: JacPoint, qx, qy, q_inf, tag: str) -> JacPoint:
     q_z = f.select(q_inf, torch.zeros_like(one), one)
     out = curve.select(p_inf, JacPoint(qx, qy, q_z), out)
     return curve.select(q_inf & ~p_inf, p, out)
+
+
+def _mul_b3(f, a):
+    """3b * a for G1 (y^2 = x^3 + 3): 9a = 8a + a."""
+    a2 = f.add(a, a)
+    a4 = f.add(a2, a2)
+    return f.add(f.add(a4, a4), a)
+
+
+def proj_start_plain(qx, qy, q_inf, tag: str) -> JacPoint:
+    """A run's first accumulator: (qx : qy : 1), or (0 : 1 : 0) at infinity
+    (a table's infinity row holds zero coordinates, and (0 : 0 : 0) is no
+    projective point). A JacPoint holds the three coordinates."""
+    f = curve_for(tag).ops
+    zero = f.zeros(q_inf.shape, qx.device)
+    one = f.const(1, q_inf.shape, qx.device)
+    return JacPoint(f.select(q_inf, zero, qx), f.select(q_inf, one, qy), f.select(q_inf, zero, one))
+
+
+def madd_proj_plain(p: JacPoint, qx, qy, q_inf, tag: str) -> JacPoint:
+    """Complete mixed add of a homogeneous projective batch p ((X : Y : Z) is
+    (X / Z, Y / Z); infinity (0 : Y : 0)) and affine points (qx, qy,
+    q_inf): Renes, Costello and Batina (2016), Algorithm 8 for a = 0, its
+    26 steps in order, no branch; complete for P == Q, P == -Q and p at
+    infinity. q at infinity gives p. G1 only: the twist's 3b is an Fq2
+    constant, and the complete scan keeps `madd_plain` on G2."""
+    if tag != "fq":
+        raise ValueError("madd_proj_plain: G1 only (the complete scan adds G2 by madd_plain)")
+    f = curve_for(tag).ops
+    t0 = f.mul(p.x, qx)  # 1
+    t1 = f.mul(p.y, qy)  # 2
+    t3 = f.add(qx, qy)  # 3
+    t4 = f.add(p.x, p.y)  # 4
+    t3 = f.mul(t3, t4)  # 5
+    t4 = f.add(t0, t1)  # 6
+    t3 = f.sub(t3, t4)  # 7
+    t4 = f.mul(qy, p.z)  # 8
+    t4 = f.add(t4, p.y)  # 9
+    y3 = f.mul(qx, p.z)  # 10
+    y3 = f.add(y3, p.x)  # 11
+    x3 = f.add(t0, t0)  # 12
+    t0 = f.add(x3, t0)  # 13
+    t2 = _mul_b3(f, p.z)  # 14
+    z3 = f.add(t1, t2)  # 15
+    t1 = f.sub(t1, t2)  # 16
+    y3 = _mul_b3(f, y3)  # 17
+    x3 = f.mul(t4, y3)  # 18
+    t2 = f.mul(t3, t1)  # 19
+    x3 = f.sub(t2, x3)  # 20
+    y3 = f.mul(y3, t0)  # 21
+    t1 = f.mul(t1, z3)  # 22
+    y3 = f.add(t1, y3)  # 23
+    t0 = f.mul(t0, t3)  # 24
+    z3 = f.mul(z3, t4)  # 25
+    z3 = f.add(z3, t0)  # 26
+    return curve_for(tag).select(q_inf, p, JacPoint(x3, y3, z3))
+
+
+def proj_to_jac_plain(p: JacPoint, tag: str) -> JacPoint:
+    """(X : Y : Z) -> Jacobian (X Z, Y Z^2, Z): the same point; infinity
+    (Z = 0) -> z = 0."""
+    f = curve_for(tag).ops
+    return JacPoint(f.mul(p.x, p.z), f.mul(p.y, f.sqr(p.z)), p.z)
 
 
 def dbl_plain(p: JacPoint, tag: str) -> JacPoint:

@@ -122,12 +122,28 @@ def _stream(t: torch.Tensor) -> int:
 
 # ---- K4: window scan ----------------------------------------------------------
 
+def _scan_law(tag: str, assume_distinct: bool):
+    """(start, step, to_jac) of the body that `window_scan_plain` stands for:
+    a run's first accumulator, the mixed add that grows it, and its
+    conversion to the Jacobian form the scan writes."""
+    from . import cuda_curve  # it imports this module
+
+    curve = curve_for(tag)
+    if assume_distinct:
+        return curve.from_affine, curve.add_mixed, lambda p: p
+    if tag == "fq":
+        return (functools.partial(cuda_curve.proj_start_plain, tag=tag),
+                lambda p, x, y, inf: cuda_curve.madd_proj_plain(p, x, y, inf, tag),
+                lambda p: cuda_curve.proj_to_jac_plain(p, tag))
+    return curve.from_affine, lambda p, x, y, inf: cuda_curve.madd_plain(p, x, y, inf, tag), lambda p: p
+
+
 def window_scan_plain(tag, keys, pay, table, tinf, tbl, assume_distinct=True):
     """The kernel's contract in torch: per step, the lanes whose run of a
     non-head bucket id < n_seg just ended write its total into that column
     of `tbl`. See `window_scan`.
 
-    Both group laws are complete; `assume_distinct` picks the one whose
+    Every law is complete; `assume_distinct` picks the one whose
     coordinates are those of the body of that name, so that each body
     equals its plain version limb for limb:
 
@@ -135,15 +151,17 @@ def window_scan_plain(tag, keys, pay, table, tinf, tbl, assume_distinct=True):
       doubles the Jacobian accumulator where P == Q and keeps it where the
       point is at infinity. The distinct body equals it wherever its
       precondition holds (no run's partial sum equals the run's next point).
-    - False: the complete body's law, ops/cuda_curve.py `madd_plain`
-      (pallas_ec.madd_core without `assume_distinct`): P == Q doubles the
-      affine point, and an accumulator and a point both at infinity give
-      (x2, y2, 0). A run's first entry is the mixed add onto infinity,
-      which is the fresh affine point, so a lane takes the doubling only
-      inside a run.
-    Both laws give the same points."""
-    from . import cuda_curve  # it imports this module
-
+    - False: the complete body's law. On G1, ops/cuda_curve.py
+      `madd_proj_plain` (Renes-Costello-Batina Algorithm 8, branch-free)
+      on a homogeneous projective accumulator that starts a run at
+      (x2 : y2 : 1), or (0 : 1 : 0) at infinity, each run's total
+      converted to Jacobian coordinates (X Z, Y Z^2, Z) where it leaves the
+      lane (`proj_to_jac_plain`). On G2, `madd_plain` (pallas_ec.madd_core
+      without `assume_distinct`: P == Q doubles the affine point) on the
+      Jacobian accumulator.
+    A run's first entry starts the accumulator and each later one is added
+    onto the run's sum, so a lane meets P == Q only inside a run. The laws
+    give the same points, not always the same coordinates."""
     curve = curve_for(tag)
     f = curve.ops
     R = rows_for(tag)
@@ -156,8 +174,10 @@ def window_scan_plain(tag, keys, pay, table, tinf, tbl, assume_distinct=True):
     gy = rows_to_coord(rows[..., R:], tag)
     ginf = tinf[idx]
     dev = keys.device
-    inf0 = curve.infinity((V,), dev)
-    acc, head_pt = inf0, inf0
+    start, step, to_jac = _scan_law(tag, assume_distinct)
+    zero = f.zeros((V,), dev)
+    inf0 = start(zero, zero, torch.ones(V, dtype=torch.bool, device=dev))  # the law's infinity
+    acc, head_pt = inf0, curve.infinity((V,), dev)
     cur_key = torch.zeros(V, dtype=torch.int32, device=dev)
     head_key = torch.full((V,), -2, dtype=torch.int32, device=dev)
     is_head = torch.ones(V, dtype=torch.bool, device=dev)
@@ -169,22 +189,24 @@ def window_scan_plain(tag, keys, pay, table, tinf, tbl, assume_distinct=True):
             same = torch.zeros(V, dtype=torch.bool, device=dev)
         else:
             same = k == cur_key
-            to_head = ~same & is_head
+            ended = ~same
+            done = to_jac(acc)
+            to_head = ended & is_head
             head_key = torch.where(to_head, cur_key, head_key)
-            head_pt = curve.select(to_head, acc, head_pt)
-            inner = torch.nonzero(~same & ~is_head & (cur_key >= 0) & (cur_key < n_seg)).squeeze(1)
-            tbl[:, cur_key[inner].long()] = point_to_planes(JacPoint(*(c[inner] for c in acc)), tag)
+            head_pt = curve.select(to_head, done, head_pt)
+            inner = torch.nonzero(ended & ~is_head & (cur_key >= 0) & (cur_key < n_seg)).squeeze(1)
+            tbl[:, cur_key[inner].long()] = point_to_planes(JacPoint(*(c[inner] for c in done)), tag)
             is_head = is_head & same
-        if assume_distinct:
-            grown = curve.add_mixed(acc, x2, y2, q_inf)
-            acc = curve.select(same, grown, curve.from_affine(x2, y2, q_inf))
-        else:
-            acc = cuda_curve.madd_plain(curve.select(same, acc, inf0), x2, y2, q_inf, tag)
+        # lanes that start a run add onto the law's infinity (their sum is
+        # not used), so that only lanes inside a run meet P == Q
+        grown = step(curve.select(same, acc, inf0), x2, y2, q_inf)
+        acc = curve.select(same, grown, start(x2, y2, q_inf))
         cur_key = k
+    last = to_jac(acc)
     tail_key = torch.where(is_head, -1, cur_key)
-    tail_pt = curve.select(~is_head, acc, curve.infinity((V,), dev))
+    tail_pt = curve.select(~is_head, last, curve.infinity((V,), dev))
     head_key = torch.where(is_head, cur_key, head_key)
-    head_pt = curve.select(is_head, acc, head_pt)
+    head_pt = curve.select(is_head, last, head_pt)
     return head_key, point_to_planes(head_pt, tag), tail_key.int(), point_to_planes(tail_pt, tag)
 
 
@@ -253,9 +275,13 @@ def window_scan(tag, keys, pay, table, tinf, tbl, assume_distinct=True):
 
 @_build.counted
 def window_scan_complete(tag, keys, pay, table, tinf, tbl):
-    """`window_scan` with the complete body (csrc/ec.cuh madd_complete: a
-    partial sum equal to the incoming point takes the affine doubling), for
-    tables that may hold one point in several rows. Its launches are
+    """`window_scan` with the complete body, for tables that may hold one
+    point in several rows (no precondition). On G1 it adds by a complete
+    law with no branch on a homogeneous projective accumulator (csrc/ec.cuh
+    `madd_proj`) and writes each run's total in Jacobian coordinates; on G2
+    by ec.cuh `madd_complete` (a partial sum equal to the incoming point
+    takes the affine doubling). Its plain version is `window_scan_plain(...,
+    assume_distinct=False)`, equal to it limb for limb. Its launches are
     counted apart from the distinct body's."""
     if keys.device.type == "cpu":
         return window_scan_plain(tag, keys, pay, table, tinf, tbl, assume_distinct=False)

@@ -1,7 +1,7 @@
 """Time the port's kernels under variants of the shared device code, on one
 NVIDIA GPU. Run from the repository root:
 
-    python3 -m keyless_zk_tpu_torch.tools.kernel_variants [K1 K3 K4 K5 K6 K7]
+    python3 -m keyless_zk_tpu_torch.tools.kernel_variants [K1 K3 K4 K4c K5 K6 K7]
 
 Each variant is a textual edit of the sources, applied to a copy of csrc/
 under build/ and built beside the shipped library:
@@ -10,7 +10,8 @@ under build/ and built beside the shipped library:
   chains; the group law's products behind a call, field.cuh `gmul`);
 - `inline`: `gmul` inlined at every product of the group law;
 - `wide`: the Montgomery product in 64-bit C arithmetic instead of carry
-  chains (the port's first product), its calls as shipped;
+  chains (field.cuh `mul_wide`, the port's first product), its calls as
+  shipped;
 - `occupancy`: K4's kernel held to 128 registers (`__launch_bounds__(128,
   4)`: four blocks of 128 threads per SM where the shipped kernel fits two);
 - `sliced`: K7's product steps run each Fq product on a group of 8 lanes,
@@ -41,18 +42,48 @@ under build/ and built beside the shipped library:
 - `pow_bits`: K1's `mont_pow` bit by bit (a squaring per bit and a
   product per set bit, the element and accumulator in registers) instead
   of by fixed 4-bit windows (a 16-entry table of x^k per thread in local
-  memory, 14 products, then per window four squarings and one product).
+  memory, 14 products, then per window four squarings and one product);
+- K4's complete body ("K4c"; msm_scan.cu `scan_law`), shipped as the
+  branch-free projective law on G1 (ec.cuh `madd_proj`) and madd_complete
+  on G2 over `Fq2S` (field.cuh `mul_wide`, operands by value), rows read
+  where they are used: `pr11`, its first body (madd_complete in the
+  distinct body's loop, `scan_lane<F, true>`); `ring`, each next row
+  copied into a two-slot ring in shared memory with 16-byte `cp.async`
+  while the current step adds; `ring_off`, the ring's copy waited for at
+  once (no overlap); `ring_1`, a ring of one slot, row t + 1 copied into
+  it once row t is read (half the shared memory); `carveout`, the ring
+  with the least shared-memory carveout that holds two blocks' rings
+  asked for; `g1_jac`, G1 by madd_complete; `g2_proj`, G2 by the
+  projective law (its 3b' a full Fq2 product); `g2_mont`, G2's product in
+  field.cuh's carry chains (`mul`) by value; `g2_byref`, G2's product
+  (`mul_wide`) taking references; `g2_fq2`, G2 on field.cuh's Fq2 (`gmul`:
+  carry chains, references);
+- the complete body's pieces on the distinct body (findings only):
+  `distinct_loop`, madd_core in `scan_law`'s loop (keys two steps
+  ahead); `distinct_ring`, the same with the ring; `distinct_law`, the
+  complete body's coordinates and laws.
 
 Each variant's outputs must equal the shipped library's, bit for bit, on
 the same inputs (chip_smoke.py holds the shipped kernels to their plain
-versions). A variant is timed on the kernels it concerns: the field
-variants on every kernel, the others on their own. Arguments name the
-kernels to run (K1, K3-K7; all by default), and only the variants that
-concern them are built. The inputs are random, at the shapes of the
-full-width proof's MSMs (ops/msm.py): msm_h's 2^25-entry G1 stream over 16 x 32769 buckets,
-scanned by one wave of lanes at two and at four blocks per SM, and a G2
-witness MSM's 2^20-entry stream over 22 x 2049 buckets; K7 at the witness
-MSMs' 22 windows of c = 12 and msm_h's 16 of c = 16. Times are
+versions), but for the variants that change a group law (`LAW_VARIANTS`):
+their scan outputs are other coordinates of the same points, so their
+bucket tables, heads and tails are compared with the shipped library's as
+affine points (cross-multiplied by the other side's z, on the card), not
+limb for limb, and their keys exactly. A variant is timed on the kernels
+it concerns: the field variants on every kernel, the others on their own.
+Arguments name the kernels to run (K1, K3, K4, K4c, K5-K7; all by
+default), and only the variants that concern them are built. The inputs
+are random, at the shapes of the full-width proof's MSMs (ops/msm.py):
+msm_h's 2^25-entry G1 stream over 16 x 32769 buckets, scanned by one wave
+of lanes at two and at four blocks per SM, and a G2 witness MSM's
+2^20-entry stream over 22 x 2049 buckets (no entry repeats the point
+before it in its lane); K7 at the witness
+MSMs' 22 windows of c = 12 and msm_h's 16 of c = 16. K4's complete body
+runs on those random streams and on planted ones: the streams that
+`msm(..., assume_distinct=False)` scans over a 2^16-row table whose points
+each fill four consecutive rows with one shared nonzero lowest digit
+(chip_smoke.py's planted tables), where every bucket run of window 0 adds
+P + P. Times are
 CUDA-event ms per call (K4's and K5's include resetting their bucket
 table), the variants in order and then in reverse; with the shipped
 library K6 is also timed at several lane counts per window, and K5 at tiles
@@ -88,39 +119,11 @@ from ..fields.torch_field import FQ, FR
 from ..ops import _build, cuda_curve, cuda_field, cuda_msm, msm, testgen
 
 KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel",
-           "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
+           "window_scan_complete_kernel", "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel",
+           "horner_kernel")
 
 _GMUL = "template <class M>\n__device__ __noinline__ Fp<M> gmul("
 _MUL = "__device__ __forceinline__ Fp<M> mul(const Fp<M>& a, const Fp<M>& b) {\n"
-_WIDE_MUL_BODY = """  uint32_t t[10];
-#pragma unroll
-  for (int i = 0; i < 10; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      c += (uint64_t)a.v[j] * b.v[i] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[8];
-    t[8] = (uint32_t)c;
-    t[9] = (uint32_t)(c >> 32);
-    uint32_t m = t[0] * M::n0;
-    c = ((uint64_t)m * M::p(0) + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; j++) {
-      c += (uint64_t)m * M::p(j) + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[8];
-    t[7] = (uint32_t)c;
-    t[8] = t[9] + (uint32_t)(c >> 32);
-  }
-  return fp_csub<M>(t, t[8]);
-"""
 _SCAN_BOUNDS = "__launch_bounds__(128)\nwindow_scan_kernel("
 _RUN_STEPS = "__device__ __forceinline__ void run_steps("
 _SLICED_RUN_STEPS = r"""// word j of a * b * 2^-256 mod q, for lane j of a group of 8 lanes that
@@ -211,6 +214,18 @@ def _function_body(signature: str, body: str):
         start = src.index(signature) + len(signature)
         end = src.index("\n}\n", start) + 1
         return src[:start] + body + src[end:]
+
+    return edit
+
+
+def _chain(*edits):
+    """One edit that applies `edits` in order (each may need the ones
+    before it)."""
+
+    def edit(src: str) -> str:
+        for e in edits:
+            src = e(src)
+        return src
 
     return edit
 
@@ -318,11 +333,172 @@ def _pow_bits(src: str) -> str:
     return _function_body(head, body)(src)
 
 
+# ---- K4's complete body (msm_scan.cu `scan_law`) and the distinct body ----
+
+_COMPLETE_CALL = ("  using C = Complete<F>;\n"
+                  "  scan_law<typename C::Coord, typename C::Law>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, "
+                  "L, V, l);\n")
+_LANE_CALL = "  scan_lane<F, true>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);\n"
+_SCAN_LAW = "// One lane's walk with the law `Law`"
+_SCAN_LAW_SIGNATURE = "int32_t* __restrict__ tpt, long long L, long long V, long long l) {\n  typename Law::Acc acc"
+_INF_FIRST = "  bool inf_now = tinf[pw_now & kRowMask] != 0, inf_next = false;\n"
+_INF_NEXT = "    if (t + 1 < L) inf_next = tinf[pw_next & kRowMask] != 0;\n"
+_LOAD_TABLE = "    load_affine(reinterpret_cast<const int4*>(table + (pw_now & kRowMask) * 2 * Field<F>::rows), x2, y2);\n"
+_LAUNCH = "  auto kernel = complete ? window_scan_complete_kernel<F> : window_scan_kernel<F>;\n  kernel<<<blocks, threads, 0, s>>>("
+_RING_HELPERS = """constexpr int kScanThreads = 128;
+
+// int4 words of one table row; a ring slot holds one more, so that the eight
+// threads of a quarter warp read their 16-byte words from distinct banks
+template <class F>
+__host__ __device__ constexpr int row_words() {
+  return Field<F>::rows / 2;
+}
+
+template <class F>
+constexpr int ring_bytes() {
+  return 2 * kScanThreads * (row_words<F>() + 1) * (int)sizeof(int4);
+}
+
+template <class F>
+__device__ __forceinline__ int4* ring_slot(int4* ring, long long s) {
+  return ring + (s * kScanThreads + threadIdx.x) * (row_words<F>() + 1);
+}
+
+__device__ __forceinline__ void cp_async16(int4* smem, const int4* gmem) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\\n" ::"n"(N) : "memory");
+}
+
+template <class F>
+__device__ __forceinline__ void fetch_row(int4* slot, const int32_t* table, int pw) {
+  const int4* row = reinterpret_cast<const int4*>(table + (pw & kRowMask) * 2 * Field<F>::rows);
+#pragma unroll
+  for (int k = 0; k < row_words<F>(); k++) cp_async16(slot + k, row + k);
+}
+
+"""
+# the ring: each thread copies its row t + 1 into the other of two slots in
+# shared memory (16-byte cp.async) while step t adds, and reads row t from
+# its slot; the complete kernel gets the ring as dynamic shared memory
+_RING_EDITS = (
+    _swap(_SCAN_LAW, _RING_HELPERS + _SCAN_LAW),
+    _swap(_SCAN_LAW_SIGNATURE, _SCAN_LAW_SIGNATURE.replace("long long l) {", "long long l,\n"
+                                                           "                         int4* ring) {")),
+    _swap(_INF_FIRST, "  fetch_row<F>(ring_slot<F>(ring, 0), table, pw_now);\n  cp_async_commit();\n" + _INF_FIRST),
+    _swap(_INF_NEXT, "    if (t + 1 < L) {\n"
+                     "      fetch_row<F>(ring_slot<F>(ring, (t + 1) & 1), table, pw_next);\n"
+                     "      inf_next = tinf[pw_next & kRowMask] != 0;\n    }\n"
+                     "    cp_async_commit();\n"),
+    _swap(_LOAD_TABLE, "    cp_async_wait<1>();\n    load_affine(ring_slot<F>(ring, t & 1), x2, y2);\n"),
+    _swap(_COMPLETE_CALL, "  extern __shared__ int4 ring[];\n" + _COMPLETE_CALL.replace("L, V, l);", "L, V, l, ring);")),
+    _swap(_LAUNCH, _LAUNCH.replace(
+        "  kernel<<<blocks, threads, 0, s>>>(",
+        "  const int smem = complete ? ring_bytes<typename Complete<F>::Coord>() : 0;\n"
+        "  if (smem > 48 * 1024) cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n"
+        "  kernel<<<blocks, threads, smem, s>>>(")),
+)
+
+
+def _ring(*more):
+    """The ring, then the edits `more` of the ringed source, as one edit."""
+    return [("msm_scan.cu", _chain(*_RING_EDITS, *more))]
+
+
+# one slot: row t + 1 is copied into it once row t has been read from it
+_RING_1 = _ring(
+    _swap("      fetch_row<F>(ring_slot<F>(ring, (t + 1) & 1), table, pw_next);\n", ""),
+    _swap("    }\n    cp_async_commit();\n", "    }\n"),
+    _swap("    cp_async_wait<1>();\n    load_affine(ring_slot<F>(ring, t & 1), x2, y2);\n",
+          "    cp_async_wait<0>();\n    load_affine(ring_slot<F>(ring, 0), x2, y2);\n"
+          "    if (t + 1 < L) fetch_row<F>(ring_slot<F>(ring, 0), table, pw_next);\n"
+          "    cp_async_commit();\n"),
+    _swap("  return 2 * kScanThreads", "  return kScanThreads"),
+)
+# the least shared-memory carveout (percent of 228 KB) that holds two blocks' rings
+_CARVEOUT = _ring(_swap("  kernel<<<blocks, threads, smem, s>>>(", (
+    "  if (smem) cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,\n"
+    "                                 (2 * (smem + 1024) * 100 + 228 * 1024 - 1) / (228 * 1024));\n"
+    "  kernel<<<blocks, threads, smem, s>>>(")))
+
+# 3b' = 3 * 3 / (9 + u) = (81 - 9u) / 82 on the twist, Montgomery words
+_G2_PROJ = """
+__device__ __forceinline__ Fq2S mul_b3(const Fq2S& a) {
+  constexpr uint32_t c0[8] = {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
+                              0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u};
+  constexpr uint32_t c1[8] = {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
+                              0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au};
+  Fq2S b3;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    b3.c0.v[i] = c0[i];
+    b3.c1.v[i] = c1[i];
+  }
+  return gmul(a, b3);
+}
+
+__device__ __noinline__ Proj<Fq2S> madd_proj(const Proj<Fq2S>& p, const Fq2S& x2, const Fq2S& y2, bool q_inf,
+                                             bool fold, Jac<Fq2S>& pj) {
+  return kzk::madd_proj<Fq2S>(p, x2, y2, q_inf, fold, pj);
+}
+"""
+_FQ2S_LOAD = "  y = {kzk::load_row<FqMod>(row + 8), kzk::load_row<FqMod>(row + 12)};\n}\n"
+
+_DISTINCT_KERNEL = """// the two bodies are two kernels, so that ptxas reports each on its own
+template <class F>
+__global__ void __launch_bounds__(128)
+window_scan_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
+                   const int32_t* __restrict__ table, const uint8_t* __restrict__ tinf,
+                   int32_t* __restrict__ tbl, long long n_seg, int32_t* __restrict__ hk,
+                   int32_t* __restrict__ hpt, int32_t* __restrict__ tk, int32_t* __restrict__ tpt, long long L,
+                   long long V) {
+  long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (l >= V) return;
+  scan_lane<F, false>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
+}
+"""
+_COMPLETE_KERNEL = "// F: the group's coordinate field (Fp<FqMod> or Fq2)\n"
+_CORE_LAW = """template <class F>
+struct CoreLaw {  // madd_core, the distinct body's law
+  using Acc = Jac<F>;
+  static constexpr bool folds = false;
+  static __device__ __forceinline__ Acc start(const F& x2, const F& y2, bool q_inf) {
+    return {x2, y2, q_inf ? Field<F>::zero() : Field<F>::one()};
+  }
+  static __device__ __forceinline__ Acc step(const Acc& acc, const F& x2, const F& y2, bool q_inf, bool same,
+                                             bool ended, Jac<F>& done) {
+    return same ? madd_core(acc, x2, y2, q_inf) : acc;
+  }
+  static __device__ __forceinline__ Jac<F> to_jac(const Acc& acc) { return acc; }
+};
+
+"""
+
+
+def _distinct(coord_law: str, ring: bool = False):
+    """The distinct body's kernel on `scan_law` with `coord_law`
+    ("<coordinates>, <law>"), and with the ring."""
+    call = f"  scan_law<{coord_law}>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l{', ring' * ring});\n"
+    kernel = (_CORE_LAW + _DISTINCT_KERNEL.replace("  scan_lane<F, false>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, "
+                                                   "tk, tpt, L, V, l);\n", "  extern __shared__ int4 ring[];\n" * ring
+                                                   + call))
+    edits = (_swap(_DISTINCT_KERNEL, ""), _swap(_COMPLETE_KERNEL, kernel + "\n" + _COMPLETE_KERNEL))
+    if ring:
+        return _ring(*edits, _swap("complete ? ring_bytes<typename Complete<F>::Coord>() : 0", "ring_bytes<F>()"))
+    return [("msm_scan.cu", edit) for edit in edits]
+
+
 # name -> ([(source file, edit)], applied in order; the kernels it concerns: None for all)
 VARIANTS = {
     "shipped": ([], None),
     "inline": ([("field.cuh", _swap(_GMUL, _GMUL.replace("__noinline__", "__forceinline__")))], None),
-    "wide": ([("field.cuh", _function_body(_MUL, _WIDE_MUL_BODY))], None),
+    "wide": ([("field.cuh", _function_body(_MUL, "  return mul_wide(a, b);\n"))], None),
     "occupancy": ([("msm_scan.cu", _swap(_SCAN_BOUNDS, _SCAN_BOUNDS.replace("(128)", "(128, 4)")))], ("K4",)),
     "sliced": ([("msm_reduce.cu", _sliced)], ("K7",)),
     "k3_scalar": (_K3_SCALAR, ("K3",)),
@@ -339,7 +515,26 @@ VARIANTS = {
     "k3_add_any": ([("curve_ops.cu", _swap(_ADD_KERNEL, _ADD_ANY + _ADD_KERNEL)),
                     ("curve_ops.cu", _swap(_ADD_CALL, _ADD_CALL.replace("add_complete", "add_any")))], ("K3",)),
     "pow_bits": ([("mont_mul.cu", _pow_bits)], ("K1",)),
+    "pr11": ([("msm_scan.cu", _swap(_COMPLETE_CALL, _LANE_CALL))], ("K4c",)),
+    "ring": (_ring(), ("K4c",)),
+    "ring_off": (_ring(_swap("cp_async_wait<1>();", "cp_async_wait<0>();")), ("K4c",)),
+    "ring_1": (_RING_1, ("K4c",)),
+    "carveout": (_CARVEOUT, ("K4c",)),
+    "g1_jac": ([("msm_scan.cu", _swap("  using Coord = Fp<FqMod>;\n  using Law = ProjLaw<Coord>;",
+                                      "  using Coord = Fp<FqMod>;\n  using Law = JacLaw<Coord>;"))], ("K4c",)),
+    "g2_proj": ([("msm_scan.cu", _swap(_FQ2S_LOAD, _FQ2S_LOAD + _G2_PROJ)),
+                 ("msm_scan.cu", _swap("  using Coord = Fq2S;\n  using Law = JacLaw<Coord>;",
+                                       "  using Coord = Fq2S;\n  using Law = ProjLaw<Coord>;"))], ("K4c",)),
+    "g2_mont": ([("msm_scan.cu", _swap("{ return mul_wide(a, b); }", "{ return mul(a, b); }"))], ("K4c",)),
+    "g2_byref": ([("msm_scan.cu", _swap("scan_mul(Fp<FqMod> a, Fp<FqMod> b)",
+                                        "scan_mul(const Fp<FqMod>& a, const Fp<FqMod>& b)"))], ("K4c",)),
+    "g2_fq2": ([("msm_scan.cu", _swap("  using Coord = Fq2S;", "  using Coord = Fq2;"))], ("K4c",)),
+    "distinct_loop": (_distinct("F, CoreLaw<F>"), ("K4",)),
+    "distinct_ring": (_distinct("F, CoreLaw<F>", ring=True), ("K4",)),
+    "distinct_law": (_distinct("typename Complete<F>::Coord, typename Complete<F>::Law"), ("K4",)),
 }
+# variants whose scan outputs are other coordinates of the same points
+LAW_VARIANTS = ("pr11", "g1_jac", "g2_proj", "distinct_law")
 
 
 def concerns(variant: str, label: str) -> bool:
@@ -415,6 +610,9 @@ def build_variants(names) -> dict:
     return libs
 
 
+TABLE_POINTS = {"fq": 1 << 16, "fq2": 1 << 12}  # distinct points of the random tables
+
+
 def point_table(tag: str, n_distinct: int, rows: int, dev):
     """(rows + 1, 2R) affine x||y table of n_distinct random points repeated,
     and its infinity flags; the last row is the infinity sentinel."""
@@ -427,17 +625,18 @@ def point_table(tag: str, n_distinct: int, rows: int, dev):
     return t, tinf.contiguous()
 
 
-def scan_stream(n_seg: int, entries: int, V: int, n_rows: int, gen, dev):
+def scan_stream(n_seg: int, entries: int, V: int, n_rows: int, n_points: int, gen, dev):
     """K4's (L, V) keys and payloads: sorted random bucket ids, padded with
-    the sentinel n_seg to whole lanes; no entry repeats the table row just
-    before it in its lane (the scan's precondition)."""
+    the sentinel n_seg to whole lanes; no entry repeats the point of the
+    entry just before it in its lane (the distinct body's precondition;
+    row r of the table holds point r % n_points)."""
     L = -(-entries // V)
     ids = torch.sort(torch.randint(0, n_seg, (entries,), generator=gen, device=dev)).values
     ids = torch.nn.functional.pad(ids, (0, L * V - entries), value=n_seg)
     lane = torch.randint(0, n_rows, (V, L), generator=gen, device=dev)
     for _ in range(3):
         dup = torch.zeros_like(lane, dtype=torch.bool)
-        dup[:, 1:] = lane[:, 1:] == lane[:, :-1]
+        dup[:, 1:] = lane[:, 1:] % n_points == lane[:, :-1] % n_points
         lane = torch.where(dup, (lane + 1) % n_rows, lane)
     neg = torch.randint(0, 2, (V, L), generator=gen, device=dev)
     keys = ids.reshape(V, L).int().T.contiguous()
@@ -454,6 +653,69 @@ def bucket_planes(tag: str, table, tinf, n: int, gen):
     z = curve.ops.select(tinf[idx], curve.ops.zeros((n,), table.device), curve.ops.const(1, (n,), table.device))
     p = JacPoint(cuda_msm.rows_to_coord(rows[:, :R], tag), cuda_msm.rows_to_coord(rows[:, R:], tag), z)
     return cuda_msm.point_to_planes(p, tag)
+
+
+def planted_stream(tag: str, dev):
+    """The (keys, pay, table, tinf, n_seg) that K4's complete body scans in
+    `msm(..., assume_distinct=False)` over a planted 2^16-row table: random
+    points each in four consecutive rows (the rows of every 97th point at
+    infinity, zero coordinates) and scalars whose lowest c-bit digit is
+    nonzero and shared by a point's four rows, so that the bucket runs of
+    window 0 add P + P (chip_smoke.py's planted tables)."""
+    curve = G1_CURVE if tag == "fq" else G2_CURVE
+    n, groups = 1 << 16, 1 << 14
+    ux, uy, _ = testgen.random_points(groups, seed=41, curve=curve, device=dev)
+    x, y = (t.repeat_interleave(4, dim=0).contiguous() for t in (ux, uy))
+    inf = (torch.arange(n, device=dev) // 4) % 97 == 5
+    x[inf] = 0
+    y[inf] = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(42)
+    scalars = torch.randint(0, 1 << 16, (n, 16), generator=gen, dtype=torch.int32, device=dev)
+    scalars[:, 15] = scalars[:, 15] % (FR.p >> 240)
+    c = msm.fused_window_bits(n)
+    digit = torch.randint(1, (1 << (c - 1)) + 1, (groups,), generator=gen, device=dev, dtype=torch.int32)
+    scalars[:, 0] = (scalars[:, 0] & (0xFFFF ^ ((1 << c) - 1))) | digit.repeat_interleave(4)
+    calls = []
+    real = cuda_msm.window_scan_complete
+
+    def capture(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return real(*args)
+
+    capture.launches = 0  # the launch wrapper counts on whatever the module's name holds
+    cuda_msm.window_scan_complete = capture
+    try:
+        msm.msm(x, y, inf, scalars, curve=curve, assume_distinct=False)
+    finally:
+        cuda_msm.window_scan_complete = real
+    (_, keys, pay, table, tinf, tbl), = calls
+    return keys, pay, table, tinf, tbl.shape[1]
+
+
+def same_points(tag: str, a, b) -> bool:
+    """Whether the (3R, n) Jacobian planes a and b hold the same points, on
+    the card: both at infinity (z == 0), or x_a z_b^2 == x_b z_a^2 and
+    y_a z_b^3 == y_b z_a^3."""
+    f = cuda_msm.curve_for(tag).ops
+    p, q = cuda_msm.planes_to_point(a, tag), cuda_msm.planes_to_point(b, tag)
+    n = a.shape[1]
+
+    def eq(u, v):
+        return (u == v).reshape(n, -1).all(1)
+
+    pi, qi = f.is_zero(p.z), f.is_zero(q.z)
+    zp2, zq2 = f.sqr(p.z), f.sqr(q.z)
+    same = eq(f.mul(p.x, zq2), f.mul(q.x, zp2)) & eq(f.mul(p.y, f.mul(zq2, q.z)), f.mul(q.y, f.mul(zp2, p.z)))
+    return bool(((pi & qi) | (~pi & ~qi & same)).all())
+
+
+def same_scan(tag: str, got, want) -> bool:
+    """A scan's (table, head keys, heads, tail keys, tails) against
+    another's: keys exactly, points as affine points."""
+    tbl, hk, hpt, tk, tpt = got
+    return (torch.equal(hk, want[1]) and torch.equal(tk, want[3])
+            and all(same_points(tag, g, w) for g, w in ((tbl, want[0]), (hpt, want[2]), (tpt, want[4]))))
 
 
 def merge_inputs(tag: str, m: int, table, gen):
@@ -501,7 +763,7 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available; this script needs one NVIDIA GPU", file=sys.stderr)
         return 2
-    kernels = set(argv) or {"K1", "K3", "K4", "K5", "K6", "K7"}
+    kernels = set(argv) or {"K1", "K3", "K4", "K4c", "K5", "K6", "K7"}
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -556,22 +818,41 @@ def main(argv: list[str]) -> int:
 
         cases.append(("K3 dbl then madd fq2 n=3, nq=n, 10 steps (the small-n MSM's)", steps))
     tables = {}
-    if kernels & {"K4", "K5", "K6", "K7"}:
-        tables = {"fq": point_table("fq", 1 << 16, 1 << 21, dev), "fq2": point_table("fq2", 1 << 12, 1 << 12, dev)}
+    scan_tags = {}  # K4 and K4c cases: label -> field
+    if kernels & {"K4", "K4c", "K5", "K6", "K7"}:
+        tables = {"fq": point_table("fq", TABLE_POINTS["fq"], 1 << 21, dev),
+                  "fq2": point_table("fq2", TABLE_POINTS["fq2"], 1 << 12, dev)}
     for tag, wn, nb, entries, V in (("fq", 16, 32769, 1 << 25, msm._SCAN_LANES),
                                     ("fq", 16, 32769, 1 << 25, 2 * msm._SCAN_LANES),
                                     ("fq2", 22, 2049, 1 << 20, 1 << 15)):
-        if "K4" not in kernels:
+        if not kernels & {"K4", "K4c"}:
             break
         table, tinf = tables[tag]
-        keys, pay = scan_stream(wn * nb, entries, V, table.shape[0] - 1, gen, dev)
+        keys, pay = scan_stream(wn * nb, entries, V, table.shape[0] - 1, TABLE_POINTS[tag], gen, dev)
         tbl = torch.zeros((3 * cuda_msm.rows_for(tag), wn * nb), dtype=torch.int32, device=dev)
+        for body, kernel in (("K4 window_scan", cuda_msm.window_scan), ("K4c window_scan_complete",
+                                                                        cuda_msm.window_scan_complete)):
+            if body.split()[0] not in kernels or (body.startswith("K4c") and V == 2 * msm._SCAN_LANES):
+                continue
+
+            def scan(kernel=kernel, tag=tag, keys=keys, pay=pay, table=table, tinf=tinf, tbl=tbl):
+                tbl.zero_()
+                return (tbl, *kernel(tag, keys, pay, table, tinf, tbl))
+
+            label = f"{body} {tag} L={keys.shape[0]} V={V} over {wn} x {nb} buckets, random"
+            scan_tags[label] = tag
+            cases.append((label, scan))
+    for tag in ("fq", "fq2") if "K4c" in kernels else ():
+        keys, pay, table, tinf, n_seg = planted_stream(tag, dev)
+        tbl = torch.zeros((3 * cuda_msm.rows_for(tag), n_seg), dtype=torch.int32, device=dev)
 
         def scan(tag=tag, keys=keys, pay=pay, table=table, tinf=tinf, tbl=tbl):
             tbl.zero_()
-            return (tbl, *cuda_msm.window_scan(tag, keys, pay, table, tinf, tbl))
+            return (tbl, *cuda_msm.window_scan_complete(tag, keys, pay, table, tinf, tbl))
 
-        cases.append((f"K4 window_scan {tag} L={keys.shape[0]} V={V} over {wn} x {nb} buckets", scan))
+        label = f"K4c window_scan_complete {tag} L={keys.shape[0]} V={keys.shape[1]} over {n_seg} buckets, planted"
+        scan_tags[label] = tag
+        cases.append((label, scan))
     k6_tables = {}
     for tag, wn, nb in (("fq", 16, 32769), ("fq", 22, 2049), ("fq2", 22, 2049)):
         if "K6" not in kernels:
@@ -613,9 +894,14 @@ def main(argv: list[str]) -> int:
                 use(name)
                 out = fn()
                 got = out if isinstance(out, tuple) else (out,)
-                equal = all(torch.equal(g, w) for g, w in zip(got, want))
+                use("shipped")  # the comparison's field products
+                if name in LAW_VARIANTS and label in scan_tags:
+                    equal = same_scan(scan_tags[label], got, want)
+                    log(f"{label}: {name} the same points as shipped: {equal}")
+                else:
+                    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+                    log(f"{label}: {name} equal to shipped: {equal}")
                 ok &= equal
-                log(f"{label}: {name} equal to shipped: {equal}")
             order = names + names[::-1]
             for name in order:
                 use(name)

@@ -88,3 +88,47 @@ def test_add_and_pow_variants_edit_what_they_name():
     assert "acc = mul(acc, x);" in bits and "kzk_mont_pow" in bits
     assert kv.concerns("pow_bits", "K1 mont_pow fq n=4, e = p - 2")
     assert not kv.concerns("pow_bits", "K3 add fq n=1 (the sharded combine's)")
+
+
+def test_scan_variants_edit_what_they_name():
+    """K4's variants: `pr11` puts the complete kernel back on the distinct
+    body's loop with madd_complete; the ring variants copy rows through
+    shared memory (`ring_1` with one slot, half the bytes; `ring_off` waits
+    at once); the law and product variants swap one type; the distinct
+    variants move the distinct kernel onto `scan_law` and leave the
+    complete kernel as shipped. The complete body's variants run on K4c
+    cases, the distinct body's on K4 ones."""
+    shipped = (_build.CSRC / "msm_scan.cu").read_text()
+    assert "cp.async.cg" not in shipped and "scan_lane<F, true>(keys" not in shipped
+
+    def scan(name):
+        return _edited(name)["msm_scan.cu"][1]
+
+    assert "  scan_lane<F, true>(keys, pay" in scan("pr11") and "scan_law<typename C::Coord" not in scan("pr11")
+    ring = scan("ring")
+    assert "cp.async.cg.shared.global" in ring and "cp_async_wait<1>();" in ring
+    assert "extern __shared__ int4 ring[];" in ring and "kernel<<<blocks, threads, smem, s>>>(" in ring
+    assert "cp_async_wait<0>();" in scan("ring_off") and "cp_async_wait<1>();" not in scan("ring_off")
+    one = scan("ring_1")
+    assert "return kScanThreads *" in one and "(t + 1) & 1" not in one
+    assert "cudaFuncAttributePreferredSharedMemoryCarveout" in scan("carveout")
+    assert "using Coord = Fp<FqMod>;\n  using Law = JacLaw<Coord>;" in scan("g1_jac")
+    g2_proj = scan("g2_proj")
+    assert "using Coord = Fq2S;\n  using Law = ProjLaw<Coord>;" in g2_proj and "Fq2S mul_b3(" in g2_proj
+    assert "{ return mul(a, b); }" in scan("g2_mont")
+    assert "scan_mul(const Fp<FqMod>& a, const Fp<FqMod>& b)" in scan("g2_byref")
+    assert "  using Coord = Fq2;" in scan("g2_fq2")
+    for name, call in (("distinct_loop", "scan_law<F, CoreLaw<F>>(keys"),
+                       ("distinct_ring", "scan_law<F, CoreLaw<F>>(keys"),
+                       ("distinct_law", "scan_law<typename Complete<F>::Coord, typename Complete<F>::Law>(keys")):
+        src = scan(name)
+        assert call in src and "scan_lane<F, false>" not in src
+        assert src.count("window_scan_kernel(") == 1
+    assert "ring_bytes<F>()" in scan("distinct_ring")
+    for name in ("pr11", "ring", "g1_jac", "g2_proj"):
+        assert kv.concerns(name, "K4c window_scan_complete fq L=63 V=33792 over 81940 buckets, planted")
+        assert not kv.concerns(name, "K4 window_scan fq L=993 V=33792 over 16 x 32769 buckets, random")
+    for name in ("distinct_loop", "distinct_ring", "distinct_law"):
+        assert kv.concerns(name, "K4 window_scan fq2 L=32 V=32768 over 22 x 2049 buckets, random")
+        assert not kv.concerns(name, "K4c window_scan_complete fq L=63 V=33792 over 81940 buckets, planted")
+    assert set(kv.LAW_VARIANTS) <= set(kv.VARIANTS)

@@ -75,12 +75,24 @@ def case(tag, n, seed, batch):
 
 def port_msm(tag, pts, vecs, monkeypatch):
     """The port's msm (one vector) or msm_batch, assume_distinct=False, as
-    host points; asserts that the complete scan took the P == Q doubling."""
+    host points; asserts that the complete scan added P + P: on G2 its law
+    took the affine doubling, on G1 its branch-free projective law met an
+    accumulator equal to the incoming point (X == x2 Z, Y == y2 Z, Z != 0)."""
     curve = CURVES[tag][0]
     x, y, inf = curve.encode_affine(pts)
     doublings = []
     real = cuda_curve._dbl_affine
     monkeypatch.setattr(cuda_curve, "_dbl_affine", lambda *a: doublings.append(1) or real(*a))
+    real_proj = cuda_curve.madd_proj_plain
+    f = G1_CURVE.ops
+
+    def proj(p, qx, qy, q_inf, tag_):
+        same = ((f.mul(qx, p.z) == p.x).all(-1) & (f.mul(qy, p.z) == p.y).all(-1) & ~f.is_zero(p.z) & ~q_inf)
+        if bool(same.any()):
+            doublings.append(1)
+        return real_proj(p, qx, qy, q_inf, tag_)
+
+    monkeypatch.setattr(cuda_curve, "madd_proj_plain", proj)
     if len(vecs) == 1:
         out = msm.msm(x, y, inf, limbs_t(vecs[0]), curve=curve, assume_distinct=False)
         got = curve.decode_jacobian(JacPoint(*(c[None] for c in out)))
