@@ -21,7 +21,8 @@ from __future__ import annotations
 import collections
 import queue
 import threading
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -44,6 +45,8 @@ from ..ops.msm import msm_batch
 class _Pending:
     witness_limbs: np.ndarray
     event: threading.Event
+    t_put: float = field(default_factory=time.perf_counter)
+    cpu0: float = field(default_factory=time.thread_time)
     result: object = None
     error: Exception | None = None
     info: dict | None = None
@@ -56,7 +59,9 @@ class BatchProver:
     arriving while a batch is in flight coalesce into the next batch
     (max_batch bounds device memory). `batch_sizes` holds the sizes of the
     batches the worker drained; after a batch, `last_h` its (B, domain, 16)
-    h scalars and, on a CUDA device, `phase_ms` its phase times."""
+    h scalars and `phase_ms` its phase times: on a CUDA device the device
+    phases (CUDA events), and on any device `blind`, the host's blinding
+    tail that follows them (host clock)."""
 
     def __init__(self, prover: Groth16Prover, max_batch: int = 8):
         if max_batch < 1:
@@ -73,13 +78,20 @@ class BatchProver:
 
     def prove(self, witness_limbs: np.ndarray, timeout: float | None = None, info: dict | None = None) -> Proof:
         """One proof through the queue. `info`, when given, receives the
-        size of the batch it rode in and that batch's phase ms."""
+        size of the batch it rode in, that batch's phase ms (one dict
+        shared by the batch's proofs) and this proof's `spans`: one
+        [name, t0, t1, cpu_ms], `batch_queue_wait`, from the put to the
+        worker draining the item, on time.perf_counter. Its cpu_ms is this
+        thread's from the put until it blocks: it sleeps from there until
+        after the batch, so that is all it spends over the span."""
         item = _Pending(witness_limbs=witness_limbs, event=threading.Event())
         self._queue.put(item)
+        cpu_ms = (time.thread_time() - item.cpu0) * 1e3
         if not item.event.wait(timeout):
             raise TimeoutError("batched prove timed out")
         if info is not None and item.info is not None:
-            info.update(item.info)
+            info.update(batch_size=item.info["batch_size"], phase_ms=item.info["phase_ms"],
+                        spans=[["batch_queue_wait", item.t_put, item.info["t_drained"], cpu_ms]])
         if item.error is not None:
             raise item.error
         return item.result
@@ -112,6 +124,7 @@ class BatchProver:
             batch = self._drain_batch()
             if not batch:
                 continue
+            t_drained = time.perf_counter()
             self.batch_sizes.append(len(batch))
             try:
                 proofs = self.prove_batch([b.witness_limbs for b in batch])
@@ -121,7 +134,7 @@ class BatchProver:
                 for item in batch:
                     item.error = e
             finally:
-                info = {"batch_size": len(batch), "phase_ms": dict(self.phase_ms)}
+                info = {"batch_size": len(batch), "phase_ms": dict(self.phase_ms), "t_drained": t_drained}
                 for item in batch:
                     item.info = info
                     item.event.set()
@@ -163,12 +176,14 @@ class BatchProver:
         g1_pts = G1_CURVE.decode_jacobian(g1)  # 4B points: a, b1, c, h per element
         b2_pts = G2_CURVE.decode_jacobian(outs["msm_b2"])
         timer.mark("decode")
-        if timer.timed:
-            self.phase_ms = timer.phase_ms()
+        phase_ms = timer.phase_ms() if timer.timed else {}
 
+        t0 = time.perf_counter()
         proofs = []
         for i in range(B):
             r, s = _sample_fr(), _sample_fr()
             a_pt, b1_pt, c_pt, h_pt = (g1_pts[k * B + i] for k in range(4))
             proofs.append(blind(pk, a_pt, b1_pt, b2_pts[i], c_pt, h_pt, r, s))
+        phase_ms["blind"] = (time.perf_counter() - t0) * 1e3
+        self.phase_ms = phase_ms
         return proofs

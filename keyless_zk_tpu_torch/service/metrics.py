@@ -5,6 +5,8 @@ histograms labeled by endpoint/method/code (:103-111), the 9-phase prove
 breakdown histogram (:31-39, 92-100), JWK fetch timing (:55-63), and JWT
 attribute size histograms (:114-122), exposed in Prometheus text format on
 a dedicated port (:199-215).
+The port adds one histogram: the wait for the prover, by queue ("lock"
+for the prover's lock, "batch" for the BatchProver's queue).
 
 A jax-free copy of keyless_zk_tpu/service/metrics.py: the port imports
 nothing of the JAX package.
@@ -130,6 +132,11 @@ PROVE_BREAKDOWN_SECONDS = REGISTRY.histogram(
     "keyless_prover_service_prove_request_breakdown_seconds",
     "Per-phase prove latency",
     ("phase",),
+)
+PROVE_QUEUE_WAIT_SECONDS = REGISTRY.histogram(
+    "keyless_prover_service_prove_queue_wait_seconds",
+    "Wait in front of the prover: for its lock, or in the BatchProver's queue",
+    ("queue",),
 )
 JWK_FETCH_SECONDS = REGISTRY.histogram(
     "keyless_prover_service_jwk_fetch_seconds",

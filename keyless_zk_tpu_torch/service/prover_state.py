@@ -23,6 +23,7 @@ proven once more before the request answers 500.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import threading
@@ -46,11 +47,17 @@ from ..groth16.zkey import load_zkey
 from ..input_processing.input_signals import derive_circuit_input_signals
 from ..parallel.batch_prover import BatchProver
 from ..tooling.setup_tool import circuit_checksum, procure
-from ..utils.logging import log_event
+from ..utils.logging import Span, log_event
 from .bcs import ephemeral_signature_bcs
 from .config import ProverServiceConfig
 from .jwk import JwkCache, JwkFetcher
-from .metrics import PAIRING_BACKEND, PROOFS_TOTAL, PROVE_BREAKDOWN_SECONDS
+from .metrics import (
+    PAIRING_BACKEND,
+    PROOFS_TOTAL,
+    PROVE_BREAKDOWN_SECONDS,
+    PROVE_PHASES,
+    PROVE_QUEUE_WAIT_SECONDS,
+)
 from .training_wheels import (
     TrainingWheelsKeyPair,
     preprocess_and_validate_request,
@@ -78,7 +85,8 @@ class ProverServiceState:
     pairing_backend: str | None = None
     # seconds of each start-up step of init_prover_from_native_setup
     startup_s: dict = field(default_factory=dict)
-    # per request: the nine phases' ms and the prover's own phase ms
+    # per answered request: its id, the nine phases' ms, its spans and the
+    # prover's own phase ms
     breakdowns: collections.deque = field(default_factory=lambda: collections.deque(maxlen=64))
 
     @classmethod
@@ -196,36 +204,39 @@ class ProverServiceState:
 
     # ---- the prove pipeline (prover_handler.rs:48-152) --------------------
 
-    def _prove_device(self, w_np) -> tuple:
+    def _prove_device(self, w_np, spans: list) -> tuple:
         """One proof of the witness limbs: (proof, the prover's phase ms,
-        the size of the batch it rode in)."""
+        the size of the batch it rode in). Appends to `spans` the wait for
+        the prover, `prove_lock_wait` (or with `batch_proving` the
+        BatchProver's `batch_queue_wait`), and in the serial service the
+        proof with the lock held, `prove`."""
         if self.batch_prover is not None:
             # requests that arrive together coalesce into one batch; no
             # global mutex (the limit of prover_state.rs:21 lifts here)
             info: dict = {}
             proof = self.batch_prover.prove(w_np, info=info)
+            spans += info["spans"]
+            _, t_put, t_drained, _ = info["spans"][0]
+            PROVE_QUEUE_WAIT_SECONDS.observe(t_drained - t_put, queue="batch")
             return proof, info["phase_ms"], info["batch_size"]
+        wait = Span("prove_lock_wait", log=False, into=spans,
+                    observe=functools.partial(PROVE_QUEUE_WAIT_SECONDS.observe, queue="lock"))
+        wait.__enter__()
         with self.prove_lock:  # prover_handler.rs:266-268
-            proof = self.prover.prove(w_np)
+            wait.__exit__(None, None, None)  # inside the block, so the lock is released whatever this raises
+            with Span("prove", log=False, into=spans):
+                proof = self.prover.prove(w_np)
             return proof, dict(self.prover.phase_ms), 1
 
-    def handle_prove(self, body: bytes) -> dict:
+    def handle_prove(self, body: bytes, request_id: int | None = None) -> dict:
         if self.prover is None or self.witness_prog is None:
             raise InternalError("prover not initialized")
 
-        phases = {}
+        spans: list = []  # [name, t0, t1, cpu_ms]: the nine phases and the waits and proofs inside them
 
         def phase(name):
-            class _T:
-                def __enter__(s):
-                    s.t0 = time.monotonic()
-
-                def __exit__(s, *a):
-                    dt = time.monotonic() - s.t0
-                    phases[name] = dt
-                    PROVE_BREAKDOWN_SECONDS.observe(dt, phase=name)
-
-            return _T()
+            return Span(name, log=False, into=spans,
+                        observe=functools.partial(PROVE_BREAKDOWN_SECONDS.observe, phase=name))
 
         with phase("deserialize_request"):
             try:
@@ -254,7 +265,7 @@ class ProverServiceState:
             w_np = self.witness_prog.witness_limbs(w64)
 
         with phase("generate_proof"):
-            proof, prover_phase_ms, batch_size = self._prove_device(w_np)
+            proof, prover_phase_ms, batch_size = self._prove_device(w_np, spans)
 
         with phase("deserialize_proof"):
             proof_json = proof.to_json_dict()
@@ -264,7 +275,7 @@ class ProverServiceState:
                 # the re-verify is there to catch a transient device fault:
                 # run the device work once more before failing the request
                 PROOFS_TOTAL.inc(outcome="verify_failed")
-                proof, prover_phase_ms, batch_size = self._prove_device(w_np)
+                proof, prover_phase_ms, batch_size = self._prove_device(w_np, spans)
                 proof_json = proof.to_json_dict()
                 if not verify_groth16(self.vk, [public_inputs_hash], proof_json):
                     PROOFS_TOTAL.inc(outcome="verify_failed")
@@ -281,7 +292,9 @@ class ProverServiceState:
             PROOFS_TOTAL.inc(outcome="success")
             resp = success_response(proof_json, public_inputs_hash, ephemeral_signature_bcs(tw_sig).hex())
         self.breakdowns.append({
-            "phases_ms": {k: v * 1e3 for k, v in phases.items()},
+            "request_id": request_id,
+            "phases_ms": {name: (t1 - t0) * 1e3 for name, t0, t1, _ in spans if name in PROVE_PHASES},
+            "spans": spans,
             "prover_phase_ms": prover_phase_ms,
             "batch_size": batch_size,
         })
