@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero:
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compile the CUDA kernels from keyless_zk_tpu_torch/csrc, and
    print ptxas's registers, spill bytes and stack frame of K1's mont_pow
-   and the K3-K7 kernels from build.log; then the port's bench
+   and the K3-K7 and K9 kernels from build.log; then the port's bench
    (`python -m keyless_zk_tpu_torch.bench`) in a subprocess with
    BENCH_QUICK=1: its devices child (the kernels already built) and the
    headline metric msm_g1_2^16, whose record must have a value and
@@ -54,7 +54,7 @@ Phases, in order; any failure exits non-zero:
    the path > 0; K5 counts each level's launch, at most three per MSM; K6
    its bucket walk and each sum launch; K1's product at most
    K1_PROVE_LAUNCHES, its decode's inversions in two launches of
-   `mont_pow`). The warm-up proof keeps the inputs of every call of the
+   `mont_pow`; K9 once). The warm-up proof keeps the inputs of every call of the
    MSM kernels (K4-K7), of the reduction (K8, both bodies) and of the
    decode's `mont_pow` with a distinct signature, and each is then run through the
    kernel and its plain version: equal, with both times (K4's and K5's
@@ -65,9 +65,15 @@ Phases, in order; any failure exits non-zero:
    one run over most of the sequence or all of it, ids >= n_seg; window
    totals at infinity, equal (the add's doubling branch) and opposite
    (P + (-P)). Then the h scalars of the
-   kernel path against the plain versions, and against the butterfly NTT
-   plan on the card, with both plans' iNTT and NTT times and the int8
-   product's;
+   kernel path against the plain versions; K9, the coefficient evaluation
+   (`eval_ab`, one launch per proof), against its plain version on the
+   prover's table (with the table's entries per row: empty rows, median,
+   p99, max) and on planted tables with a witness near r in a quarter of
+   its rows (a row of the most entries the prover takes, 2^23 - 1, empty
+   rows, rows on either side of a block's share of the merge path, no
+   entries), with both times and the h scalars' beside them; the h scalars
+   against the butterfly NTT plan on the card, with both plans' iNTT and
+   NTT times and the int8 product's;
 7. the setup path on the chain circuit a == b^m with m = 2^16 - 4 (domain
    2^16), built with the port's ConstraintSystem: `groth16_setup` on the
    card with pinned toxic values (K3's madd and dbl launched), a proof
@@ -123,7 +129,8 @@ Phases, in order; any failure exits non-zero:
    msm_a's scan stream is held against the plain version), three timed proofs
    with per-phase CUDA-event times, every proof checked under the pairing
    against [public-inputs hash] (a tampered proof must fail), the launch
-   counts of one proof, the coefficient evaluation's time. Serve: the HTTP
+   counts of one proof (K9 once), K9 against its plain version on the
+   key's table, with the table's entries per row. Serve: the HTTP
    service and its metrics server on 127.0.0.1 (ephemeral ports, threads,
    no JWK fetcher), three POST /v0/prove one after another and two at once
    with JWTs of five seeds, each 200 with a proof that verifies under
@@ -137,12 +144,13 @@ Phases, in order; any failure exits non-zero:
    step's seconds are logged, and each request's wall ms, nine phase ms
    and the prover's phase ms. Between the proofs and the service, batched
    proving on the same prover (no second prover is built): the witnesses
-   of four seeded JWTs, a warm-up batch of four whose K7 inputs are kept,
+   of eight seeded JWTs, a warm-up batch of four whose K7 inputs are kept,
    every proof verifying (a tampered one not), its msm_b2 and msm_h equal
    to the single prover's MSMs of the same witnesses; the batched K7
    against its plain version at B = 1, 2 and 4 on those window totals and
-   on planted edge cases; three timed batches at B = 1, 2 and 4 with
-   proofs_per_sec, phases, launches per batch and peak device memory.
+   on planted edge cases; three timed batches at B = 1, 2, 4 and 8 with
+   proofs_per_sec, phases, launches per batch (K9 once per element) and
+   peak device memory.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -184,15 +192,19 @@ KERNELS = [
      "batch"),
     ("redc", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:115", "prove"),
     ("redc_twiddle", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:122", "prove"),
+    # K9 replaces no Pallas kernel: the JAX package's coefficient evaluation is XLA
+    ("eval_ab", "keyless_zk_tpu_torch/csrc/eval_ab.cu", "none (keyless_zk_tpu/groth16/prover.py:80 _eval_ab_fused, XLA)",
+     "prove"),
 ]
 
 # K1 product launches of one proof: the 758 that the proof made (H100 runs)
 # when each Fermat chain was one launch per product, less the decode's two
 # chains of 364 products each (Fq p - 2: 254 squarings, 110 set bits),
-# which `mont_pow` runs in two launches. The 30 are the merges' to_mont,
-# the coefficient chunks' products, the h scalars' four and the decode's
-# products around the inversions.
-K1_PROVE_LAUNCHES = 758 - 2 * 364
+# which `mont_pow` runs in two launches, less the products of the 11
+# coefficient chunks, which K9 (`eval_ab`) makes in one launch. The 19 are
+# the merges' to_mont, the h scalars' four and the decode's products around
+# the inversions.
+K1_PROVE_LAUNCHES = 758 - 2 * 364 - 11
 
 R_FIXED, S_FIXED = 0x1234567890ABCDEF1234567890ABCDEF, 0xFEDCBA0987654321FEDCBA0987654321
 TOXIC = {"tau": 999, "alpha": 3, "beta": 4, "gamma": 5, "delta": 6}
@@ -284,10 +296,11 @@ def spin_up(fn, seconds: float = 1.0) -> None:
 def plain_kernels():
     """Route the main path's kernel wrappers to their plain versions on the
     card (comparison runs only; the plain versions launch no kernel)."""
-    from keyless_zk_tpu_torch.ops import cuda_curve, cuda_field, cuda_msm, cuda_redc
+    from keyless_zk_tpu_torch.ops import cuda_curve, cuda_eval_ab, cuda_field, cuda_msm, cuda_redc
 
     saved = {}
     swaps = {
+        cuda_eval_ab: {"eval_ab": cuda_eval_ab.eval_ab_plain},
         cuda_field: {"mont_mul": cuda_field.mont_mul_plain, "mont_pow": cuda_field.mont_pow_plain},
         cuda_msm: {
             "window_scan": cuda_msm.window_scan_plain,
@@ -1170,11 +1183,72 @@ def small_proof(dev) -> None:
     check(equal, "the GPU proof differs from the CPU proof")
 
 
-def log_eval_ab(label: str, prover, w) -> None:
-    """The coefficient evaluation's share of the h scalars, CUDA events."""
-    _, ab_ms = cuda_ms(lambda: prover._eval_ab(w), reps=3)
+def eval_ab_compare(records: dict, note: str, table, w) -> float:
+    """K9 on one table and witness against its plain version (K1 routed to
+    its plain version too): equal or fail, both times, the bound. Bytes:
+    the table, the witness and the output once (the gathers of witness
+    rows are L2 hits); multiply-adds: one CIOS product per entry and per
+    witness row (its packing). Returns the kernel's ms."""
+    from keyless_zk_tpu_torch.ops import cuda_eval_ab
+
+    got, ms = cuda_ms(lambda: cuda_eval_ab.eval_ab(w, table), reps=5)
+    with plain_kernels():
+        want, plain_ms = cuda_ms(lambda: cuda_eval_ab.eval_ab_plain(w, table), warm=False)
+    record(records, "eval_ab", max_abs_err(got, want), ms, plain_ms, note,
+           moved=nbytes(w, table.row_ptr, table.src, table.val, table.part_row, got),
+           imad=(table.nnz + w.shape[0]) * FQ_MUL_IMAD)
+    return ms
+
+
+def eval_ab_checks(label: str, prover, w, records: dict) -> None:
+    """K9 on a prover's own table (entries per row: empty rows, median, p99,
+    max), then the h scalars' time beside it (CUDA events)."""
+    import numpy as np
+
+    table = prover.coef_table
+    n = np.diff(table.row_ptr.cpu().numpy())
+    log(f"{label}: coefficient table {table.nnz} entries over {n.shape[0]} rows: {int((n == 0).sum())} empty, "
+        f"median {np.median(n):.0f}, p99 {np.percentile(n, 99):.0f}, max {int(n.max())} entries per row")
+    ab_ms = eval_ab_compare(records, f"{label}, the prover's table", prover.coef_table, w)
     _, h_ms = cuda_ms(lambda: prover._h_scalars(w), reps=3)
     log(f"{label}: eval_ab {ab_ms:.3f} ms of h scalars {h_ms:.3f} ms ({prover.pk.n_coefs} coefficients)")
+
+
+def eval_ab_planted(dev, records: dict) -> None:
+    """K9 on planted tables (ops/testgen.py `coef_table_of_lengths`) with a
+    witness near r in a quarter of its rows: the keyless shape's 2^22 rows
+    with an empty first row, a row of the most entries the prover takes
+    (2^23 - 1), short rows, 2^20 empty rows and a last row of 20,000; one
+    row of 2^22 entries among 64; rows one entry short of and one past a
+    block's share of the merge path; a table with no entries."""
+    import numpy as np
+
+    from keyless_zk_tpu_torch.ops import cuda_eval_ab, testgen
+
+    n_vars = testgen.KEYLESS_SHAPE["n_vars"]
+    n_rows = 2 << testgen.KEYLESS_SHAPE["domain_pow"]
+    share = cuda_eval_ab.ITEMS_PER_THREAD * cuda_eval_ab.BLOCK_THREADS
+    rng = np.random.default_rng(3)
+    skewed = rng.integers(0, 41, n_rows)
+    skewed[0] = 0
+    skewed[1] = cuda_eval_ab.MAX_ROW_ENTRIES
+    skewed[2 : 1 << 21] = rng.integers(1, 4, (1 << 21) - 2)
+    skewed[1 << 21 : 3 << 20] = 0
+    skewed[-1] = 20000
+    one = np.zeros(64, np.int64)
+    one[5] = 1 << 22
+    one[-1] = 3
+    across = np.full(20000, share - 1)
+    across[::2] = share + 1
+    for i, (note, lengths, nv) in enumerate((
+        ("planted: 2^22 rows, row 0 empty, row 1 of 2^23 - 1, 2^20 empty rows, last row 20000", skewed, n_vars),
+        ("planted: one row of 2^22 entries among 64 rows", one, 1000),
+        (f"planted: rows of {share - 1} and {share + 1} entries, a block's share {share}", across, n_vars),
+        ("planted: 2^20 rows, no entries", np.zeros(1 << 20, np.int64), 100),
+    )):
+        table = testgen.coef_table_of_lengths(lengths, nv, 40 + i, dev)
+        eval_ab_compare(records, note, table, testgen.witness_near_r(nv, 50 + i, dev))
+        del table
 
 
 def ntt_plans(prover, w, dev) -> None:
@@ -1279,6 +1353,7 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     check(counts_out["boundary_merge"] <= 3 * 5, "K5 took more than three launches per MSM")
     check_k1_launches(counts_out, "the full-width proof")
     check(counts_out.get("window_scan_complete", 0) == 0, "the full-width proof launched the complete scan")
+    check(counts_out.get("eval_ab", 0) == 1, f"{counts_out.get('eval_ab', 0)} eval_ab launches in one proof, not 1")
 
     w = torch.from_numpy(key.witness.astype("int32")).to(dev)
     got = prover._h_scalars(w)
@@ -1287,7 +1362,8 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     equal = torch.equal(got, want)
     log(f"full width: h scalars kernel path == plain path: {equal}")
     check(equal, "h scalars differ between the kernel path and the plain path")
-    log_eval_ab("full width", prover, w)
+    eval_ab_checks("full width", prover, w, records)
+    eval_ab_planted(dev, records)
     ntt_plans(prover, w, dev)
 
 
@@ -2035,12 +2111,14 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash, records: dict, counts
             check(prove_counts.get(name, 0) > 0, f"kernel {name} was not launched by the keyless proof")
     check_k1_launches(prove_counts, "the keyless proof")
     check(prove_counts.get("window_scan_complete", 0) == 0, "the keyless proof launched the complete scan")
-    log_eval_ab("keyless path", prover, w)
+    check(prove_counts.get("eval_ab", 0) == 1, "the keyless proof did not launch eval_ab once")
+    eval_ab_checks("keyless path", prover, w, records)
 
 
 # ---- batched proving ---------------------------------------------------------------
 
-BATCH_SEEDS = (21, 22, 23, 24)
+BATCH_SEEDS = (21, 22, 23, 24, 25, 26, 27, 28)
+WARM_BATCH = 4  # the warm-up batch: BATCH_SEEDS[:4]
 
 
 def batch_witnesses(state) -> tuple[list, list]:
@@ -2096,8 +2174,9 @@ def batch_proofs(dev, state, records: dict, counts: dict) -> None:
     """Batched proving on the service's prover (no second prover): a warm-up
     batch of four (its K7 inputs kept, every proof verifying, a tampered one
     not, its msm_b2 and msm_h against the single prover), the batched K7
-    against its plain version, then three timed batches at B = 1, 2 and 4:
-    ms per batch, proofs_per_sec, phases, launches per batch, peak GiB."""
+    against its plain version, then three timed batches at B = 1, 2, 4 and
+    8: ms per batch, proofs_per_sec, phases, launches per batch (K9 once
+    per element), peak GiB; the batch of four's launches are the record's."""
     import torch
 
     from keyless_zk_tpu_torch.ops import _build, cuda_msm
@@ -2109,21 +2188,21 @@ def batch_proofs(dev, state, records: dict, counts: dict) -> None:
         calls: dict = {}
         with capture_calls(cuda_msm, ("horner_total",), calls):
             t0 = time.perf_counter()
-            proofs = bp.prove_batch(wits)
+            proofs = bp.prove_batch(wits[:WARM_BATCH])
             wall = (time.perf_counter() - t0) * 1e3
-        log(f"batch warm-up B = {len(wits)}: wall {wall:.1f} ms; phases (ms) "
+        log(f"batch warm-up B = {WARM_BATCH}: wall {wall:.1f} ms; phases (ms) "
             + json.dumps({k: round(v, 3) for k, v in bp.phase_ms.items()}))
         for i, (proof, h) in enumerate(zip(proofs, hashes)):
             verify_checked(state.vk, [h], proof, f"batch warm-up element {i}", tamper=i == 0)
         check(not verifies(state.vk, [hashes[1]], proofs[0]),
               "a batch proof verifies against another element's public input")
-        batched_msms_equal(state.prover, bp, wits, dev)
+        batched_msms_equal(state.prover, bp, wits[:WARM_BATCH], dev)
         k7_batched_checks(calls, records)
         del calls
         k7_planted_batched(dev, records)
         torch.cuda.empty_cache()
 
-        for B in (1, 2, 4):
+        for B in (1, 2, 4, 8):
             torch.cuda.reset_peak_memory_stats()
             walls = []
             for i in range(3):
@@ -2145,7 +2224,9 @@ def batch_proofs(dev, state, records: dict, counts: dict) -> None:
             for name, _, _, path in KERNELS:
                 if path == "prove":
                     check(per_batch.get(name, 0) > 0, f"kernel {name} was not launched by a batch of {B}")
-        counts.update(per_batch)  # the batch of four's
+            check(per_batch["eval_ab"] == B, f"{per_batch['eval_ab']} eval_ab launches in a batch of {B}, not {B}")
+            if B == 4:
+                counts.update(per_batch)
         counts["horner_total_batched"] = counts["horner_total"]
     finally:
         bp.shutdown()
@@ -2382,7 +2463,7 @@ def timed_proof(prover, witness, r, s):
 
 PTXAS_KERNELS = ("mont_pow_kernel", "madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel",
                  "window_scan_complete_kernel",
-                 "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel")
+                 "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel", "eval_ab_kernel")
 
 
 def main() -> int:
@@ -2415,9 +2496,9 @@ def main() -> int:
         _build.library()
         log(f"build: {secs:.1f} s -> {lib}")
         report = _build.ptxas_report((lib.parent / "build.log").read_text(), PTXAS_KERNELS)
-        log("ptxas (K1 mont_pow, K3-K7): " + json.dumps(report))
+        log("ptxas (K1 mont_pow, K3-K7, K9): " + json.dumps(report))
         check(all(any(k.startswith(name + " ") for k in report) for name in PTXAS_KERNELS),
-              "build.log lacks the ptxas report of a K1 mont_pow or K3-K7 kernel")
+              "build.log lacks the ptxas report of a K1 mont_pow, K3-K7 or K9 kernel")
         bench_quick()
         mont_mul_checks(dev, records)
         mont_pow_checks(dev, records)

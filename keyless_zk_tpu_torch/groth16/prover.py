@@ -6,8 +6,9 @@ Per proof, on the prover's device:
   2. sum the scalars of duplicate table rows (`_merge_scalars`);
   3. four MSMs over the witness (A, B1, C on G1; B2 on G2)   [ops/msm.py]
   4. the h scalars (`_h_scalars`): coefficient-table evaluation into the
-     a|b vectors, c = a*b, one batched (3, n) iNTT -> coset shift -> NTT,
-     h = a*b - c, from_mont              [ops/mxu_ntt.py on the card,
+     a|b vectors [ops/cuda_eval_ab.py], c = a*b, one batched (3, n)
+     iNTT -> coset shift -> NTT, h = a*b - c, from_mont
+                                         [ops/mxu_ntt.py on the card,
                                           ops/ntt.py on the CPU]
   5. the H MSM;
   6. decode the five results to affine (one batched inversion per group,
@@ -16,8 +17,8 @@ Per proof, on the prover's device:
 then a host tail blinds with r, s (groth16.cpp:288-353).
 
 The polynomial phase runs in the reference's raw representation exactly as
-the JAX package does (coefficients pre-scaled by R^2 at load), so every
-intermediate equals the JAX package's bit for bit. The JAX package's
+the JAX package does (coefficients pre-scaled by R^2 at load), so the
+output of every phase equals the JAX package's bit for bit. The JAX package's
 compact witness upload (`_witness_to_device`) is not carried over: the
 witness goes up as dense (n_vars, 16) limbs after a check that every limb
 is below 2^16.
@@ -41,6 +42,7 @@ from ..fields import bn254
 from ..fields import torch_field as tf
 from ..fields.limbs import NUM_LIMBS
 from ..fields.torch_field import FR
+from ..ops import cuda_eval_ab
 from ..ops.msm import msm
 from ..ops.mxu_ntt import get_mxu_plan
 from ..ops.ntt import NTTPlan
@@ -68,11 +70,6 @@ class Proof:
             "protocol": "groth16",
         }
 
-
-# Coefficient-table entries evaluated per pass: a 2^22-entry chunk holds
-# 256 MB of gathered witness rows, 256 MB of products and 1 GB of int64
-# cumsums on the card; the full keyless table (~42.7M entries) runs in 11.
-_COEF_CHUNK = 1 << 22
 
 # Window bits of the four witness MSMs. Their scalars are ~94% bit-valued,
 # so the stream length is nearly independent of c while the bucket tables
@@ -176,38 +173,13 @@ class Groth16Prover:
         )
         self.points_h, self._merge_h = dedup_dev(pk.points_h.x, pk.points_h.y, pk.points_h.inf)
 
-        # Coefficient table sorted by destination row once (host); per proof
-        # it streams through in _COEF_CHUNK slices, each reduced by a sorted
-        # segment sum (cumsum + boundary gather) into its row range.
+        # Coefficient table sorted by destination row once (host), laid out
+        # for the coefficient evaluation (ops/cuda_eval_ab.py: K9 on the
+        # card, its plain version on the CPU)
         dest = pk.coef_m.astype(np.int64) * pk.domain_size + pk.coef_c
-        nnz = dest.shape[0]
         order = np.argsort(dest, kind="stable")
-        dest = dest[order]
-        if nnz:
-            seg_max = int(np.diff(np.searchsorted(dest, np.arange(2 * pk.domain_size + 1))).max())
-            if seg_max >= (1 << 23):
-                raise ValueError("coefficient row too dense for 8-bit split sums")
-        chunk = min(_COEF_CHUNK, max(nnz, 1))
-        k = -(-nnz // chunk) or 1
-        pad = k * chunk - nnz
-        # pad with zero-value terms aimed at the last row (keeps ids sorted)
-        s_sorted = np.pad(pk.coef_s[order].astype(np.int64), (0, pad))
-        d_sorted = np.pad(dest, (0, pad), constant_values=2 * pk.domain_size - 1)
-        self.coef_s = torch.from_numpy(s_sorted.reshape(k, chunk)).to(dev)
-        self._coef_chunks = []
-        for ci in range(k):
-            dk = d_sorted[ci * chunk : (ci + 1) * chunk]
-            d_lo, d_hi = int(dk[0]), int(dk[-1])
-            bounds = np.searchsorted(dk, np.arange(d_lo, d_hi + 2)).astype(np.int64)
-            self._coef_chunks.append((d_lo, torch.from_numpy(bounds).to(dev)))
-        # pre-scale the Montgomery-stored coefficients by R^2: the reduction's
-        # trailing REDC then lands values in the reference's representation
-        r2 = tf.consts(FR, FR.r2_mod_p, (), dev)
-        self.coef_val = torch.empty((k, chunk, NUM_LIMBS), dtype=torch.int32, device=dev)
-        for ci in range(k):
-            rows = pk.coef_val[order[ci * chunk : (ci + 1) * chunk]]
-            rows = np.pad(rows, [(0, chunk - rows.shape[0]), (0, 0)])
-            self.coef_val[ci] = tf.mont_mul(_limbs(rows, dev), r2, FR)
+        self.coef_table = cuda_eval_ab.coef_table(2 * pk.domain_size, dest[order], pk.coef_s[order], pk.coef_val,
+                                                  order, dev)
         self.coset = self.plan.coset_powers()
 
     # ---- device phases -------------------------------------------------
@@ -227,18 +199,7 @@ class Groth16Prover:
     def _eval_ab(self, witness: torch.Tensor) -> torch.Tensor:
         """witness -> concatenated a|b evaluation vectors (2*domain, 16)
         (replaces the reference's 1024-spinlock scatter, groth16.cpp:135-156)."""
-        m2 = 2 * self.pk.domain_size
-        dev = witness.device
-        acc_lo = torch.zeros((m2, NUM_LIMBS), dtype=torch.int64, device=dev)
-        acc_hi = torch.zeros((m2, NUM_LIMBS), dtype=torch.int64, device=dev)
-        for ci, (d_lo, bounds) in enumerate(self._coef_chunks):
-            av = tf.mont_mul(witness.index_select(0, self.coef_s[ci]), self.coef_val[ci], FR)
-            lo, hi = tf.split8(av)
-            del av
-            w = bounds.shape[0] - 1
-            acc_lo[d_lo : d_lo + w] += tf.segment_diffs(lo, bounds)
-            acc_hi[d_lo : d_lo + w] += tf.segment_diffs(hi, bounds)
-        return tf.fold_split8_mod(acc_lo, acc_hi, FR)
+        return cuda_eval_ab.eval_ab(witness, self.coef_table)
 
     def _h_scalars(self, witness: torch.Tensor) -> torch.Tensor:
         """Witness -> MSM_H scalar vector (the NTT phase), on the device."""

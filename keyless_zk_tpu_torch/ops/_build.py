@@ -132,6 +132,7 @@ def load(path: Path) -> ctypes.CDLL:
         "kzk_curve_madd": [P, P, P, P, P, P, P, P, P, LL, LL, I, P],
         "kzk_curve_dbl": [P, P, P, P, P, P, LL, I, P],
         "kzk_curve_add": [P, P, P, P, P, P, P, P, P, LL, I, P],
+        "kzk_eval_ab": [P, LL, P, P, P, P, P, LL, LL, I, I, P, P, P, P],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

@@ -174,6 +174,48 @@ def _witness(rng, n_vars: int) -> np.ndarray:
     return w
 
 
+def coef_table_of_lengths(lengths, n_vars: int, seed: int, device=devices.DEFAULT, items: int | None = None):
+    """A coefficient table (ops/cuda_eval_ab.py `CoefTable`) whose row d holds
+    lengths[d] entries, its witness rows and its stored values (below r)
+    drawn on `device` from `seed`: the planted shapes of the coefficient
+    evaluation's checks (empty rows, rows past a block's share of the
+    kernel's merge path, a dense last row)."""
+    from .cuda_eval_ab import ITEMS_PER_THREAD, WORDS, CoefTable, merge_path_starts, pack_words
+
+    dev = devices.resolve(device)
+    row_ptr = np.concatenate([[0], np.cumsum(np.asarray(lengths, np.int64))])
+    nnz = int(row_ptr[-1])
+    items = ITEMS_PER_THREAD if items is None else items
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    src = torch.randint(0, n_vars, (nnz,), generator=gen, dtype=torch.int32, device=dev)
+    val = torch.empty((nnz, WORDS), dtype=torch.int32, device=dev)
+    for e0 in range(0, nnz, 1 << 22):
+        limbs = torch.randint(0, 1 << 16, (min(1 << 22, nnz - e0), NUM_LIMBS), generator=gen, dtype=torch.int32,
+                              device=dev)
+        limbs[:, -1] = torch.randint(0, R >> 240, (limbs.shape[0],), generator=gen, dtype=torch.int32, device=dev)
+        val[e0 : e0 + limbs.shape[0]] = pack_words(limbs)
+    row_ptr = torch.from_numpy(row_ptr.astype(np.int32)).to(dev)
+    return CoefTable(
+        n_src=n_vars, row_ptr=row_ptr, src=src, val=val, part_row=merge_path_starts(row_ptr, items), items=items
+    )
+
+
+def witness_near_r(n_vars: int, seed: int, device=devices.DEFAULT) -> torch.Tensor:
+    """(n_vars, 16) int32 limbs: a quarter of the rows r - 1 - k (k < 2^16),
+    a quarter zero, a quarter 0 or 1, the rest uniform below r."""
+    rng = np.random.default_rng(seed)
+    w = _random_below_r(rng, n_vars)
+    kind = rng.integers(0, 4, n_vars)
+    near = np.flatnonzero(kind == 0)
+    w[near] = ints_to_limbs([R - 1 - int(k) for k in rng.integers(0, 1 << 16, near.shape[0])])
+    w[kind == 1] = 0
+    bits = kind == 2
+    w[bits] = 0
+    w[bits, 0] = rng.integers(0, 2, int(bits.sum()))
+    return torch.from_numpy(w.astype(np.int32)).to(devices.resolve(device))
+
+
 def synthetic_key(
     seed: int,
     *,

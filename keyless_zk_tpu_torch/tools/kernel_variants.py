@@ -1,7 +1,7 @@
 """Time the port's kernels under variants of the shared device code, on one
 NVIDIA GPU. Run from the repository root:
 
-    python3 -m keyless_zk_tpu_torch.tools.kernel_variants [K1 K3 K4 K4c K5 K6 K7]
+    python3 -m keyless_zk_tpu_torch.tools.kernel_variants [K1 K3 K4 K4c K5 K6 K7 K9]
 
 Each variant is a textual edit of the sources, applied to a copy of csrc/
 under build/ and built beside the shipped library:
@@ -43,6 +43,14 @@ under build/ and built beside the shipped library:
   product per set bit, the element and accumulator in registers) instead
   of by fixed 4-bit windows (a 16-entry table of x^k per thread in local
   memory, 14 products, then per window four squarings and one product);
+- `ab_wide`: K9's coefficient evaluation (eval_ab.cu) with each row's
+  exact unreduced sum of full 8 x 8-word products in 17 words, reduced
+  once per row by 2^512 (`AccWide`), instead of a Montgomery product and
+  a modular add per entry (`AccProduct`);
+- `ab_no_prefetch`: K9 loading each entry's operands when it consumes the
+  entry, instead of one entry ahead of the product;
+- `ab_prefetch_past`: K9's loads one entry ahead bounded by the table's
+  end instead of by the thread's share of the merge path;
 - K4's complete body ("K4c"; msm_scan.cu `scan_law`), shipped as the
   branch-free projective law on G1 (ec.cuh `madd_proj`) and madd_complete
   on G2 over `Fq2S` (field.cuh `mul_wide`, operands by value), rows read
@@ -71,7 +79,7 @@ bucket tables, heads and tails are compared with the shipped library's as
 affine points (cross-multiplied by the other side's z, on the card), not
 limb for limb, and their keys exactly. A variant is timed on the kernels
 it concerns: the field variants on every kernel, the others on their own.
-Arguments name the kernels to run (K1, K3, K4, K4c, K5-K7; all by
+Arguments name the kernels to run (K1, K3, K4, K4c, K5-K7, K9; all by
 default), and only the variants that concern them are built. The inputs
 are random, at the shapes of the full-width proof's MSMs (ops/msm.py):
 msm_h's 2^25-entry G1 stream over 16 x 32769 buckets, scanned by one wave
@@ -95,7 +103,9 @@ its mixed add with n affine points (G1 2^20, G2 2^18), its full add on
 G1 2^20 + 37 and G2 2^18 + 61 points with P == Q in one lane of 64 (as
 chip_smoke.py plants it) and at n = 1 (the sharded MSM's combine); and ten steps
 of the small-n MSM (a doubling and a mixed add, G2, n = 3, as the chain
-key's B2 table gives `_msm_small`). K1's `mont_pow` runs the Fq inverse
+key's B2 table gives `_msm_small`). K9 runs on a random table of the keyless key's shape (42.7M entries
+over 2^22 rows, uniform rows) with a witness near r in a quarter of its
+rows. K1's `mont_pow` runs the Fq inverse
 (e = p - 2) at the decode's n = 4 and n = 1 and the setup's 2^21. Per variant the
 script prints the build seconds, ptxas's registers and spills and the SASS
 instruction count of each kernel.
@@ -111,16 +121,17 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from ..curves import ref_curve
 from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
 from ..fields.torch_field import FQ, FR
-from ..ops import _build, cuda_curve, cuda_field, cuda_msm, msm, testgen
+from ..ops import _build, cuda_curve, cuda_eval_ab, cuda_field, cuda_msm, msm, testgen
 
 KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel",
            "window_scan_complete_kernel", "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel",
-           "horner_kernel")
+           "horner_kernel", "eval_ab_kernel")
 
 _GMUL = "template <class M>\n__device__ __noinline__ Fp<M> gmul("
 _MUL = "__device__ __forceinline__ Fp<M> mul(const Fp<M>& a, const Fp<M>& b) {\n"
@@ -194,6 +205,102 @@ __device__ __forceinline__ void run_steps(Fq* slot, const uint32_t* code, int n_
   }
 }
 """
+
+
+_EVAL_ACC = "using EvalAcc = AccProduct;"
+_ACC_WIDE = r"""// The row's exact sum of x * cR over 17 words (< 2^23 r^2 < 2^531, x the
+// witness row mod r): per entry the full 8 x 8-word product (field.cuh's
+// rows of carry chains) and a 17-word add; per row one word-wise
+// Montgomery reduction by 2^512 (sixteen rounds), < 2r, and a conditional
+// subtract: sum x c R * 2^-512 = sum w c R^-1 mod r.
+struct AccWide {
+  uint32_t t[17];
+  // the witness row reduced mod r: (w * R^2 * R^-1) * 1 * R^-1
+  __device__ __forceinline__ static Fr prep(const Fr& w) {
+    const Fr r2 = {{0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u, 0x53bb8085u, 0x8c49833du, 0x7f4e44a5u,
+                    0x0216d0b1u}};
+    Fr one = fp_zero<FrMod>();
+    one.v[0] = 1;
+    return mul(mul(w, r2), one);
+  }
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < 17; i++) t[i] = 0;
+  }
+  __device__ __forceinline__ void add_entry(const Fr& x, const Fr& c) {
+    uint32_t p[17];
+#pragma unroll
+    for (int i = 0; i < 17; i++) p[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      mad_lo_row(p + i, x.v, c.v[i]);
+      mad_hi_row(p + i, x.v, c.v[i]);
+    }
+    uint64_t k = 0;
+#pragma unroll
+    for (int i = 0; i < 17; i++) {
+      k += (uint64_t)t[i] + p[i];
+      t[i] = (uint32_t)k;
+      k >>= 32;
+    }
+  }
+  __device__ __forceinline__ Fr value() const {
+    uint32_t u[25];
+#pragma unroll
+    for (int i = 0; i < 25; i++) u[i] = i < 17 ? t[i] : 0;
+#pragma unroll
+    for (int i = 0; i < 16; i++) {
+      const uint32_t m = u[i] * FrMod::n0;
+      uint64_t k = 0;
+#pragma unroll
+      for (int j = 0; j < 8; j++) {
+        k += (uint64_t)m * FrMod::p(j) + u[i + j];
+        u[i + j] = (uint32_t)k;
+        k >>= 32;
+      }
+#pragma unroll
+      for (int j = i + 8; j < 25; j++) {
+        k += u[j];
+        u[j] = (uint32_t)k;
+        k >>= 32;
+      }
+    }
+    return fp_csub<FrMod>(u + 16, u[24]);
+  }
+};
+
+"""
+_AB_PREFETCH = r"""    // the operands of entry e, and the witness row of entry e + 1, loaded
+    // one entry ahead of the product
+    Fr x = fp_zero<FrMod>(), c = fp_zero<FrMod>();
+    int s_next = 0;
+    if (e < e_lim) {
+      x = load_words(wpk + 2 * (long long)__ldcs(src + e));
+      c = load_words_stream(val + 2 * e);
+      if (e + 1 < e_lim) s_next = __ldcs(src + e + 1);
+    }
+    for (long long d = d0; d < d1; d++) {
+      if (e < row_end) {
+        Fr xn = fp_zero<FrMod>(), cn = fp_zero<FrMod>();
+        int sn = 0;
+        if (e + 1 < e_lim) {
+          xn = load_words(wpk + 2 * (long long)s_next);
+          cn = load_words_stream(val + 2 * (e + 1));
+          if (e + 2 < e_lim) sn = __ldcs(src + e + 2);
+        }
+        acc.add_entry(x, c);
+        x = xn;
+        c = cn;
+        s_next = sn;
+        e++;
+"""
+_AB_IN_TURN = r"""    for (long long d = d0; d < d1; d++) {
+      if (e < row_end) {
+        const int s = __ldcs(src + e);
+        acc.add_entry(load_words(wpk + 2 * (long long)s), load_words_stream(val + 2 * e));
+        e++;
+"""
+_AB_E_LIM = "const long long e_lim = e + (d1 - d0) < total - n_rows ? e + (d1 - d0) : total - n_rows;"
 
 
 def _swap(old: str, new: str):
@@ -494,6 +601,9 @@ def _distinct(coord_law: str, ring: bool = False):
     return [("msm_scan.cu", edit) for edit in edits]
 
 
+_AB_WIDE = [("eval_ab.cu", _swap(_EVAL_ACC, _ACC_WIDE + "using EvalAcc = AccWide;"))]
+_AB_NO_PREFETCH = [("eval_ab.cu", _swap(_AB_PREFETCH, _AB_IN_TURN))]
+
 # name -> ([(source file, edit)], applied in order; the kernels it concerns: None for all)
 VARIANTS = {
     "shipped": ([], None),
@@ -515,6 +625,9 @@ VARIANTS = {
     "k3_add_any": ([("curve_ops.cu", _swap(_ADD_KERNEL, _ADD_ANY + _ADD_KERNEL)),
                     ("curve_ops.cu", _swap(_ADD_CALL, _ADD_CALL.replace("add_complete", "add_any")))], ("K3",)),
     "pow_bits": ([("mont_mul.cu", _pow_bits)], ("K1",)),
+    "ab_wide": (_AB_WIDE, ("K9",)),
+    "ab_no_prefetch": (_AB_NO_PREFETCH, ("K9",)),
+    "ab_prefetch_past": ([("eval_ab.cu", _swap(_AB_E_LIM, "const long long e_lim = total - n_rows;"))], ("K9",)),
     "pr11": ([("msm_scan.cu", _swap(_COMPLETE_CALL, _LANE_CALL))], ("K4c",)),
     "ring": (_ring(), ("K4c",)),
     "ring_off": (_ring(_swap("cp_async_wait<1>();", "cp_async_wait<0>();")), ("K4c",)),
@@ -763,7 +876,7 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available; this script needs one NVIDIA GPU", file=sys.stderr)
         return 2
-    kernels = set(argv) or {"K1", "K3", "K4", "K4c", "K5", "K6", "K7"}
+    kernels = set(argv) or {"K1", "K3", "K4", "K4c", "K5", "K6", "K7", "K9"}
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -881,6 +994,15 @@ def main(argv: list[str]) -> int:
             return tbl
 
         cases.append((f"K5 boundary_merge {tag} m={m}", merge))
+
+    if "K9" in kernels:
+        shape = testgen.KEYLESS_SHAPE
+        n_rows = 2 << shape["domain_pow"]
+        lengths = np.bincount(np.random.default_rng(9).integers(0, n_rows, shape["n_coefs"]), minlength=n_rows)
+        ab_table = testgen.coef_table_of_lengths(lengths, shape["n_vars"], 9, dev)
+        ab_w = testgen.witness_near_r(shape["n_vars"], 10, dev)
+        cases.append((f"K9 eval_ab keyless shape, {shape['n_coefs']} entries over {n_rows} rows",
+                      lambda: cuda_eval_ab.eval_ab(ab_w, ab_table)))
 
     ok = set(libs) == set(names)
     results: dict = {}
