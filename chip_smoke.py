@@ -2063,14 +2063,32 @@ def start_service(dev, setup_pk):
     return state
 
 
+def blind_against_plain(pk, points, proof) -> None:
+    """The native blinding, built on this host (-march=native), against
+    `blind_plain` on the keyless warm-up proof's decoded points (A, B1, B2,
+    C, H) at R_FIXED, S_FIXED, and both against the warm-up proof."""
+    from keyless_zk_tpu_torch.groth16 import prover as prover_mod
+
+    t0 = time.perf_counter()
+    native = prover_mod.blind(pk, *points, R_FIXED, S_FIXED)
+    t1 = time.perf_counter()
+    plain = prover_mod.blind_plain(pk, *points, R_FIXED, S_FIXED)
+    t2 = time.perf_counter()
+    log(f"keyless blind: native {(t1 - t0) * 1e3:.3f} ms, blind_plain {(t2 - t1) * 1e3:.1f} ms, "
+        f"equal {native == plain}, equal to the warm-up proof {native == proof}")
+    check(native == plain == proof, "the native blinding differs from blind_plain on the keyless proof's points")
+
+
 def keyless_proofs(dev, state, kw, wires_ref, public_hash, records: dict, counts: dict) -> None:
     """The proofs of the test JWT through the service's witness program and
-    prover: a warm-up (tampered copy refused), its five MSMs against K3's
-    double-and-add, the complete MSM on the key's raw tables with the
-    warm-up witness, three timed proofs, their launch counts."""
+    prover: a warm-up (tampered copy refused; its blinding against
+    `blind_plain`), its five MSMs against K3's double-and-add, the complete
+    MSM on the key's raw tables with the warm-up witness, three timed
+    proofs, their launch counts."""
     import numpy as np
     import torch
 
+    from keyless_zk_tpu_torch.groth16 import prover as prover_mod
     from keyless_zk_tpu_torch.ops import _build
 
     prover, prog = state.prover, state.witness_prog
@@ -2081,10 +2099,16 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash, records: dict, counts
     check(np.array_equal(wires, wires_ref), "the reloaded witness program computes another witness")
     witness = prog.witness_limbs(wires)
 
-    proof, wall = timed_proof(prover, witness, R_FIXED, S_FIXED)
+    real_blind, points = prover_mod.blind, []
+    prover_mod.blind = lambda pk, *args: points.append(args[:5]) or real_blind(pk, *args)
+    try:
+        proof, wall = timed_proof(prover, witness, R_FIXED, S_FIXED)
+    finally:
+        prover_mod.blind = real_blind
     log(f"keyless proof warm-up: wall {wall:.1f} ms")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
     verify_checked(state.vk, [public_hash], proof, "keyless proof warm-up", tamper=True)
+    blind_against_plain(prover.pk, points[0], proof)
     w = torch.from_numpy(witness.astype(np.int32)).to(dev)
     msm_against_double_and_add(prover, w)
     raw_table_msms(prover, w, dev, records, counts["complete"])

@@ -8,10 +8,13 @@ as circuits/witness_engine.py builds its engine), and exposes:
 
     pairing_check(pairs) -> bool     # prod e(Pi, Qi) == 1
     pairing(p1, p2) -> tuple         # one e(P, Q), 6 Fq2 coeffs of w^i
+    groth16_blind(...) -> (pi_a, pi_b, pi_c)   # a proof's blinding tail
+    g1_mul(p, k), g2_mul(p, k)       # one scalar multiplication
 
 Used by groth16.pairing.verify_groth16 whenever `available()` (the
-reference verifies through ark-groth16 natives, prover_handler.rs:329-336);
-the pure-Python tower stays the independent cross-check. The service
+reference verifies through ark-groth16 natives, prover_handler.rs:329-336),
+and always by groth16.prover.blind, which has no fallback; the pure-Python
+tower and `blind_plain` stay the independent cross-checks. The service
 reports which one it verifies with (service/prover_state.py
 `check_pairing_backend`).
 
@@ -153,9 +156,11 @@ def _load_lib():
         u64p = ctypes.POINTER(ctypes.c_uint64)
         lib.bn254_pairing_check.argtypes = [u64p, u64p, ctypes.c_int]
         lib.bn254_pairing_check.restype = ctypes.c_int
-        for name in ("bn254_miller_test", "bn254_fq_mul_test"):
+        for name in ("bn254_miller_test", "bn254_fq_mul_test", "bn254_g1_mul", "bn254_g2_mul"):
             getattr(lib, name).argtypes = [u64p, u64p, u64p]
             getattr(lib, name).restype = None
+        lib.bn254_groth16_blind.argtypes = [u64p, u64p, u64p, u64p]
+        lib.bn254_groth16_blind.restype = None
         _lib = lib
         return lib
 
@@ -170,32 +175,65 @@ def available() -> bool:
     return _load_lib() is not None
 
 
+def _put(buf, off: int, values) -> None:
+    """Standard-form ints as 4 limbs each into buf[off:], reduced mod q
+    here: the Python curve helpers (groth16/pairing.py _add/multiply)
+    return lazily-unreduced ints."""
+    for j, v in enumerate(values):
+        buf[off + 4 * j : off + 4 * j + 4] = _limbs(v % Q)
+
+
+def _get(buf, off: int, n: int) -> list[int]:
+    return [sum(int(buf[off + 4 * j + i]) << (64 * i) for i in range(4)) for j in range(n)]
+
+
+def _put_g1(buf, k: int, p) -> None:
+    """G1 point k of buf (8 words each); None, the point at infinity, stays
+    all zero."""
+    if p is not None:
+        _put(buf, 8 * k, p)
+
+
+def _put_g2(buf, k: int, p) -> None:
+    if p is not None:
+        _put(buf, 16 * k, (*p[0], *p[1]))
+
+
+def _get_g1(buf, off: int):
+    x, y = _get(buf, off, 2)
+    return None if x == y == 0 else (x, y)
+
+
+def _get_g2(buf, off: int):
+    x0, x1, y0, y1 = _get(buf, off, 4)
+    return None if x0 == x1 == y0 == y1 == 0 else ((x0, x1), (y0, y1))
+
+
 def _pack_points(pairs) -> tuple:
-    """Coordinates are reduced mod q here: the Python curve helpers
-    (groth16/pairing.py _add/multiply) return lazily-unreduced ints."""
     n = len(pairs)
     g1 = (ctypes.c_uint64 * (8 * n))()
     g2 = (ctypes.c_uint64 * (16 * n))()
     for k, (p1, p2) in enumerate(pairs):
-        if p1 is not None:
-            for i, l in enumerate(_limbs(p1[0] % Q)):
-                g1[8 * k + i] = l
-            for i, l in enumerate(_limbs(p1[1] % Q)):
-                g1[8 * k + 4 + i] = l
-        if p2 is not None:
-            (x0, x1), (y0, y1) = p2
-            for off, v in ((0, x0 % Q), (4, x1 % Q), (8, y0 % Q), (12, y1 % Q)):
-                for i, l in enumerate(_limbs(v)):
-                    g2[16 * k + off + i] = l
+        _put_g1(g1, k, p1)
+        _put_g2(g2, k, p2)
     return g1, g2, n
+
+
+def _scalars(*ks: int):
+    return (ctypes.c_uint64 * (4 * len(ks)))(*(l for k in ks for l in _limbs(k % bn254.R_SCALAR)))
+
+
+def _loaded():
+    lib = _load_lib()
+    if lib is None:
+        raise RuntimeError("native pairing unavailable")
+    return lib
 
 
 def pairing_check(pairs) -> bool:
     """pairs: list of ((x, y) | None, ((x0,x1),(y0,y1)) | None).
     Returns prod e(Pi, Qi) == 1. Raises RuntimeError if unavailable."""
-    lib = _load_lib()
-    if lib is None:
-        raise RuntimeError("native pairing unavailable")
+    lib = _loaded()
     g1, g2, n = _pack_points(pairs)
     return bool(lib.bn254_pairing_check(g1, g2, n))
 
@@ -203,18 +241,12 @@ def pairing_check(pairs) -> bool:
 def pairing(p1: tuple, p2: tuple) -> tuple:
     """One full pairing e(P, Q) -> ((c0,c1) x 6) standard-form coefficients
     of w^0..w^5 (w^6 = 9+u tower) — for differential tests."""
-    lib = _load_lib()
-    if lib is None:
-        raise RuntimeError("native pairing unavailable")
+    lib = _loaded()
     out = (ctypes.c_uint64 * 48)()
     g1, g2, _ = _pack_points([(p1, p2)])
     lib.bn254_miller_test(out, g1, g2)
-    coeffs = []
-    for i in range(6):
-        c0 = sum(int(out[8 * i + j]) << (64 * j) for j in range(4))
-        c1 = sum(int(out[8 * i + 4 + j]) << (64 * j) for j in range(4))
-        coeffs.append((c0, c1))
-    return tuple(coeffs)
+    vals = _get(out, 0, 12)
+    return tuple(zip(vals[0::2], vals[1::2]))
 
 
 def fq_mul_test(a: int, b: int) -> int:
@@ -224,3 +256,38 @@ def fq_mul_test(a: int, b: int) -> int:
     bb = (ctypes.c_uint64 * 4)(*_limbs(b))
     lib.bn254_fq_mul_test(out, aa, bb)
     return sum(int(out[j]) << (64 * j) for j in range(4))
+
+
+def g1_mul(p, k: int):
+    """k * p for a G1 affine point (None = infinity), k reduced mod r as
+    curves/ref_curve.py `GroupOps.mul` reduces it."""
+    lib = _loaded()
+    buf, out = (ctypes.c_uint64 * 8)(), (ctypes.c_uint64 * 8)()
+    _put_g1(buf, 0, p)
+    lib.bn254_g1_mul(out, buf, _scalars(k))
+    return _get_g1(out, 0)
+
+
+def g2_mul(p, k: int):
+    """k * p for a G2 affine point ((x0, x1), (y0, y1)) or None."""
+    lib = _loaded()
+    buf, out = (ctypes.c_uint64 * 16)(), (ctypes.c_uint64 * 16)()
+    _put_g2(buf, 0, p)
+    lib.bn254_g2_mul(out, buf, _scalars(k))
+    return _get_g2(out, 0)
+
+
+def groth16_blind(a, b1, b2, c, h, alpha1, beta1, beta2, delta1, delta2, r: int, s: int) -> tuple:
+    """A proof's blinding (groth16/prover.py `blind`) in one native call:
+    (pi_a, pi_b, pi_c) as affine host points, None for infinity. ctypes
+    lets go of the GIL for the call."""
+    lib = _loaded()
+    g1 = (ctypes.c_uint64 * (8 * 7))()
+    g2 = (ctypes.c_uint64 * (16 * 3))()
+    for k, p in enumerate((a, b1, c, h, alpha1, beta1, delta1)):
+        _put_g1(g1, k, p)
+    for k, p in enumerate((b2, beta2, delta2)):
+        _put_g2(g2, k, p)
+    out = (ctypes.c_uint64 * 32)()
+    lib.bn254_groth16_blind(out, g1, g2, _scalars(r, s, r * s))
+    return _get_g1(out, 0), _get_g2(out, 8), _get_g1(out, 24)

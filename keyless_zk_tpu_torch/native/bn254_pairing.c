@@ -19,8 +19,15 @@
  * come from a header generated at build time by groth16/pairing_native.py
  * — nothing here is hand-copied.
  *
+ * The same library does a proof's host tail, its blinding with r and s
+ * (five G1 and one G2 scalar multiplications, Jacobian, one inversion
+ * each), in place of the pure-Python affine double-and-add
+ * (groth16/prover.py `blind_plain`).
+ *
  * Exported API (all coordinates standard-form 4x64-bit LE limbs):
  *   bn254_pairing_check(g1s, g2s, n)  ->  1 if prod e(Pi, Qi) == 1
+ *   bn254_groth16_blind(out, g1s, g2s, ks): pi_a, pi_b, pi_c of a proof
+ *   bn254_g1_mul / bn254_g2_mul: one scalar multiplication each
  *   bn254_fq_mul_test / bn254_miller_test: differential-test hooks.
  */
 
@@ -635,12 +642,231 @@ static void final_exp(fq12 *r, const fq12 *f_in) {
     fq12_mul(r, &T0, &T1);
 }
 
+/* ---------------- G1 / G2 group law (the Groth16 blinding) ----------------
+ *
+ * Jacobian (X : Y : Z) ~ (X/Z^2, Y/Z^3) on y^2 = x^3 + b, with Z = 0 the
+ * point at infinity; one template for G1 over Fq and G2 over Fq2 (type and
+ * function prefix F, affine type A, Montgomery one ONE).  The mixed add is
+ * complete: P at infinity, Q at infinity, P == Q (it doubles) and P == -Q
+ * (infinity).  A scalar multiplication is MSB-first double-and-add over the
+ * 256-bit scalar with one inversion back to affine at the end; k = 0 gives
+ * infinity.  The scalars are secret blinding factors, and this code is
+ * variable-time, as the host tail it replaces was. */
+
+#define DEFINE_GROUP(G, F, A, ONE)                                                \
+typedef struct { F X, Y, Z; } G##_jac;                                            \
+                                                                                  \
+static void G##_set_inf(G##_jac *r) { r->X = ONE; r->Y = ONE; memset(&r->Z, 0, sizeof(F)); } \
+                                                                                  \
+/* dbl-2009-l (a = 0); alias-safe; Z = 0 stays 0 */                               \
+static void G##_dbl(G##_jac *r, const G##_jac *p) {                               \
+    F a, b, c, d, e, f, t, z3;                                                    \
+    F##_sqr(&a, &p->X);                                                           \
+    F##_sqr(&b, &p->Y);                                                           \
+    F##_sqr(&c, &b);                                                              \
+    F##_add(&t, &p->X, &b);                                                       \
+    F##_sqr(&t, &t);                                                              \
+    F##_sub(&t, &t, &a);                                                          \
+    F##_sub(&t, &t, &c);                                                          \
+    F##_add(&d, &t, &t);                  /* D = 2((X + B)^2 - A - C) */          \
+    F##_add(&e, &a, &a);                                                          \
+    F##_add(&e, &e, &a);                  /* E = 3A */                            \
+    F##_sqr(&f, &e);                                                              \
+    F##_mul(&t, &p->Y, &p->Z);                                                    \
+    F##_add(&z3, &t, &t);                 /* Z3 = 2 Y Z */                        \
+    F##_sub(&r->X, &f, &d);                                                       \
+    F##_sub(&r->X, &r->X, &d);            /* X3 = F - 2D */                       \
+    F##_sub(&t, &d, &r->X);                                                       \
+    F##_mul(&t, &e, &t);                                                          \
+    F##_add(&c, &c, &c);                                                          \
+    F##_add(&c, &c, &c);                                                          \
+    F##_add(&c, &c, &c);                                                          \
+    F##_sub(&r->Y, &t, &c);               /* Y3 = E (D - X3) - 8C */              \
+    r->Z = z3;                                                                    \
+}                                                                                 \
+                                                                                  \
+/* madd-2007-bl: r = p + q, q affine; alias-safe in r and p */                    \
+static void G##_madd(G##_jac *r, const G##_jac *p, const A *q) {                  \
+    F z1z1, u2, s2, h, hh, i, j, rr, v, t;                                        \
+    if (q->inf) { *r = *p; return; }                                              \
+    if (F##_is_zero(&p->Z)) { r->X = q->x; r->Y = q->y; r->Z = ONE; return; }    \
+    F##_sqr(&z1z1, &p->Z);                                                        \
+    F##_mul(&u2, &q->x, &z1z1);                                                   \
+    F##_mul(&s2, &q->y, &p->Z);                                                   \
+    F##_mul(&s2, &s2, &z1z1);                                                     \
+    F##_sub(&h, &u2, &p->X);                                                      \
+    F##_sub(&rr, &s2, &p->Y);                                                     \
+    if (F##_is_zero(&h)) {                /* same x: P == Q or P == -Q */          \
+        if (F##_is_zero(&rr)) G##_dbl(r, p);                                      \
+        else G##_set_inf(r);                                                      \
+        return;                                                                   \
+    }                                                                             \
+    F##_add(&rr, &rr, &rr);               /* r = 2 (S2 - Y1) */                   \
+    F##_sqr(&hh, &h);                                                             \
+    F##_add(&i, &hh, &hh);                                                        \
+    F##_add(&i, &i, &i);                  /* I = 4 HH */                          \
+    F##_mul(&j, &h, &i);                                                          \
+    F##_mul(&v, &p->X, &i);                                                       \
+    F##_add(&t, &p->Z, &h);                                                       \
+    F##_sqr(&t, &t);                                                              \
+    F##_sub(&t, &t, &z1z1);                                                       \
+    F##_sub(&r->Z, &t, &hh);              /* Z3 = (Z1 + H)^2 - Z1Z1 - HH */       \
+    F##_mul(&t, &p->Y, &j);                                                       \
+    F##_add(&t, &t, &t);                  /* 2 Y1 J, before Y1 is overwritten */  \
+    F##_sqr(&r->X, &rr);                                                          \
+    F##_sub(&r->X, &r->X, &j);                                                    \
+    F##_sub(&r->X, &r->X, &v);                                                    \
+    F##_sub(&r->X, &r->X, &v);            /* X3 = r^2 - J - 2V */                 \
+    F##_sub(&v, &v, &r->X);                                                       \
+    F##_mul(&v, &rr, &v);                                                         \
+    F##_sub(&r->Y, &v, &t);               /* Y3 = r (V - X3) - 2 Y1 J */          \
+}                                                                                 \
+                                                                                  \
+static void G##_to_affine(A *r, const G##_jac *p) {                               \
+    F zi, zi2;                                                                    \
+    if (F##_is_zero(&p->Z)) { memset(r, 0, sizeof(*r)); r->inf = 1; return; }     \
+    F##_inv(&zi, &p->Z);                                                          \
+    F##_sqr(&zi2, &zi);                                                           \
+    F##_mul(&r->x, &p->X, &zi2);                                                  \
+    F##_mul(&zi2, &zi2, &zi);                                                     \
+    F##_mul(&r->y, &p->Y, &zi2);                                                  \
+    r->inf = 0;                                                                   \
+}                                                                                 \
+                                                                                  \
+/* r = k p, k as 4 little-endian 64-bit limbs */                                  \
+static void G##_mul(A *r, const A *p, const uint64_t k[4]) {                      \
+    G##_jac acc;                                                                  \
+    G##_set_inf(&acc);                                                            \
+    for (int bit = 255; bit >= 0; bit--) {                                        \
+        G##_dbl(&acc, &acc);                                                      \
+        if ((k[bit >> 6] >> (bit & 63)) & 1) G##_madd(&acc, &acc, p);             \
+    }                                                                             \
+    G##_to_affine(r, &acc);                                                       \
+}                                                                                 \
+                                                                                  \
+/* r = pts[0] + ... + pts[n - 1] */                                               \
+static void G##_sum(A *r, const A *pts, int n) {                                  \
+    G##_jac acc;                                                                  \
+    G##_set_inf(&acc);                                                            \
+    for (int i = 0; i < n; i++) G##_madd(&acc, &acc, &pts[i]);                    \
+    G##_to_affine(r, &acc);                                                       \
+}
+
+DEFINE_GROUP(g1, fq, g1_t, FQ_ONE)
+DEFINE_GROUP(g2, fq2, g2_t, FQ2_ONE)
+
 /* ---------------- public API ---------------- */
 
 static void load_fq_std(fq *r, const uint64_t *limbs) {
     fq t;
     memcpy(t.l, limbs, 32);
     fq_to_mont(r, &t);
+}
+
+static void store_fq_std(uint64_t *limbs, const fq *a) {
+    fq t;
+    fq_from_mont(&t, a);
+    memcpy(limbs, t.l, 32);
+}
+
+static int all_zero(const uint64_t *w, int n) {
+    uint64_t acc = 0;
+    for (int i = 0; i < n; i++) acc |= w[i];
+    return acc == 0;
+}
+
+/* Affine points in standard form, G1 as (x, y) = 8 words and G2 as
+ * (x.c0, x.c1, y.c0, y.c1) = 16 words; all zero is the point at infinity
+ * (no curve point has x = y = 0). */
+static void g1_load(g1_t *p, const uint64_t *in) {
+    memset(p, 0, sizeof(*p));
+    p->inf = all_zero(in, 8);
+    if (p->inf) return;
+    load_fq_std(&p->x, in);
+    load_fq_std(&p->y, in + 4);
+}
+
+static void g2_load(g2_t *p, const uint64_t *in) {
+    memset(p, 0, sizeof(*p));
+    p->inf = all_zero(in, 16);
+    if (p->inf) return;
+    load_fq_std(&p->x.c0, in);
+    load_fq_std(&p->x.c1, in + 4);
+    load_fq_std(&p->y.c0, in + 8);
+    load_fq_std(&p->y.c1, in + 12);
+}
+
+static void g1_store(uint64_t *out, const g1_t *p) {
+    memset(out, 0, 8 * sizeof(uint64_t));
+    if (p->inf) return;
+    store_fq_std(out, &p->x);
+    store_fq_std(out + 4, &p->y);
+}
+
+static void g2_store(uint64_t *out, const g2_t *p) {
+    memset(out, 0, 16 * sizeof(uint64_t));
+    if (p->inf) return;
+    store_fq_std(out, &p->x.c0);
+    store_fq_std(out + 4, &p->x.c1);
+    store_fq_std(out + 8, &p->y.c0);
+    store_fq_std(out + 12, &p->y.c1);
+}
+
+void bn254_g1_mul(uint64_t *out8, const uint64_t *p8, const uint64_t *k4) {
+    g1_t p, r;
+    g1_load(&p, p8);
+    g1_mul(&r, &p, k4);
+    g1_store(out8, &r);
+}
+
+void bn254_g2_mul(uint64_t *out16, const uint64_t *p16, const uint64_t *k4) {
+    g2_t p, r;
+    g2_load(&p, p16);
+    g2_mul(&r, &p, k4);
+    g2_store(out16, &r);
+}
+
+/* One proof's blinding (groth16.cpp:288-353), scalars below the group order:
+ *   pi_a = A + alpha1 + r delta1
+ *   pi_b = B2 + beta2 + s delta2
+ *   B1'  = B1 + beta1 + s delta1
+ *   pi_c = C + H + s pi_a + r B1' - (r s) delta1
+ * g1s: A, B1, C, H, alpha1, beta1, delta1 (8 words each); g2s: B2, beta2,
+ * delta2 (16 words each); ks: r, s and r s reduced mod the group order
+ * (4 words each);
+ * out: pi_a (8 words), pi_b (16), pi_c (8). */
+void bn254_groth16_blind(uint64_t *out32, const uint64_t *g1s, const uint64_t *g2s, const uint64_t *ks) {
+    enum { A_, B1_, C_, H_, ALPHA1, BETA1, DELTA1 };
+    const uint64_t *r = ks, *s = ks + 4, *rs = ks + 8;
+    g1_t p[7], t[5], pi_a, pi_c;
+    g2_t q[3], pi_b;
+    for (int i = 0; i < 7; i++) g1_load(&p[i], g1s + 8 * i);
+    for (int i = 0; i < 3; i++) g2_load(&q[i], g2s + 16 * i);
+
+    t[0] = p[A_];
+    t[1] = p[ALPHA1];
+    g1_mul(&t[2], &p[DELTA1], r);
+    g1_sum(&pi_a, t, 3);
+
+    g2_mul(&q[2], &q[2], s);
+    g2_sum(&pi_b, q, 3);
+
+    t[0] = p[B1_];
+    t[1] = p[BETA1];
+    g1_mul(&t[2], &p[DELTA1], s);
+    g1_sum(&t[4], t, 3); /* B1' */
+
+    t[0] = p[C_];
+    t[1] = p[H_];
+    g1_mul(&t[2], &pi_a, s);
+    g1_mul(&t[3], &t[4], r);
+    g1_mul(&t[4], &p[DELTA1], rs);
+    fq_neg(&t[4].y, &t[4].y);
+    g1_sum(&pi_c, t, 5);
+
+    g1_store(out32, &pi_a);
+    g2_store(out32 + 8, &pi_b);
+    g1_store(out32 + 24, &pi_c);
 }
 
 /* g1s: n * 8 u64 (x, y); g2s: n * 16 u64 (x.c0, x.c1, y.c0, y.c1);

@@ -181,14 +181,17 @@ class ProverServiceState:
         """Probe which pairing implementation verify_proof will use and make
         degradation loud: a gcc-less host falls back to the pure-Python
         verifier (about half a second per proof) — log it, count it, and
-        (with config.require_native_pairing) fail the healthcheck."""
+        (with config.require_native_pairing) fail the healthcheck. The
+        proof's blinding (groth16/prover.py `blind`) takes the same library
+        and has no fallback: `Groth16Prover` raises without it."""
         backend = "native" if pairing_native.available() else "python_fallback"
         self.pairing_backend = backend
         PAIRING_BACKEND.inc(backend=backend)
         if backend != "native":
             log_event(
                 "native pairing library unavailable; Groth16 verification "
-                "falls back to the pure-Python tower (~10x slower)",
+                "falls back to the pure-Python tower (~10x slower), and no "
+                "proof can be blinded",
                 level="WARN",
                 backend=backend,
                 reason=pairing_native.build_error(),
