@@ -42,8 +42,8 @@ Phases, in order; any failure exits non-zero:
    that msm built the complete body equal to its plain version (its
    bound counts the P == Q lanes, found in the stream, as affine
    doublings) and the distinct body not;
-5. a small proof (synthetic key at domain 2^10) on the card, which runs the
-   matmul NTT, and on the CPU through the plain versions, which runs the
+5. a small proof (synthetic key at domain 2^10) on the card, which runs
+   K10's NTT, and on the CPU through the plain versions, which runs the
    butterfly NTT, with the same r and s: the proofs must be equal, and
    equal to the key's discrete-log oracle;
 6. the prove path at the full keyless width (n_vars 1,377,553, domain 2^21,
@@ -54,8 +54,9 @@ Phases, in order; any failure exits non-zero:
    the path > 0; K5 counts each level's launch, at most three per MSM; K6
    its bucket walk and each sum launch; K1's product at most
    K1_PROVE_LAUNCHES, its decode's inversions in two launches of
-   `mont_pow`; K9 once). The warm-up proof keeps the inputs of every call of the
-   MSM kernels (K4-K7), of the reduction (K8, both bodies) and of the
+   `mont_pow`; K9 once; K10 four passes, K8 none). The warm-up proof keeps the
+   inputs of every call of the MSM kernels (K4-K7), of K10 (each pass of the
+   h chain) and of the
    decode's `mont_pow` with a distinct signature, and each is then run through the
    kernel and its plain version: equal, with both times (K4's and K5's
    bucket tables, written in place, are compared, K4's with its heads and
@@ -71,9 +72,14 @@ Phases, in order; any failure exits non-zero:
    p99, max) and on planted tables with a witness near r in a quarter of
    its rows (a row of the most entries the prover takes, 2^23 - 1, empty
    rows, rows on either side of a block's share of the merge path, no
-   entries), with both times and the h scalars' beside them; the h scalars
-   against the butterfly NTT plan on the card, with both plans' iNTT and
-   NTT times and the int8 product's;
+   entries), with both times and the h scalars' beside them; K10 at the
+   keyless shape ((3, 2^21) random values with 0, 1 and r - 1 planted):
+   its NTT, iNTT and fused h chain against the plain version, with the
+   bound; the h scalars under K10 equal to the matmul plan's and the
+   butterfly plan's on the card, and to K10's unfused chain; the three
+   plans' iNTT, NTT and h chain times in turns; K8 on the matmul plan's
+   own iNTT and NTT (captured calls against the plain version, its
+   launches) and the int8 product's time;
 7. the setup path on the chain circuit a == b^m with m = 2^16 - 4 (domain
    2^16), built with the port's ConstraintSystem: `groth16_setup` on the
    card with pinned toxic values (K3's madd and dbl launched), a proof
@@ -120,7 +126,8 @@ Phases, in order; any failure exits non-zero:
    program, the zkey, checked equal to the setup's key array by array and
    vk point by vk point before the prover is built, the prover), the
    native pairing required. Prove through the service's program and prover: one
-   warm-up proof whose five MSMs are each held against a double-and-add
+   warm-up proof (each of its four K10 passes kept and held against the
+   plain version, timed) whose five MSMs are each held against a double-and-add
    over K3's complete mixed add (as affine points), then
    `msm(..., assume_distinct=False)` with the same witness on the key's
    raw tables A, B1, C and B2, which repeat points, each equal as an
@@ -129,7 +136,7 @@ Phases, in order; any failure exits non-zero:
    msm_a's scan stream is held against the plain version), three timed proofs
    with per-phase CUDA-event times, every proof checked under the pairing
    against [public-inputs hash] (a tampered proof must fail), the launch
-   counts of one proof (K9 once), K9 against its plain version on the
+   counts of one proof (K9 once, K10 four times, K8 never), K9 against its plain version on the
    key's table, with the table's entries per row. Serve: the HTTP
    service and its metrics server on 127.0.0.1 (ephemeral ports, threads,
    no JWK fetcher), three POST /v0/prove one after another and two at once
@@ -172,7 +179,7 @@ from pathlib import Path
 KERNELS = [
     # (record: the wrapper, whose counter gives its launches; source; the TPU
     # kernel it replaces; the path whose run gives its launches: "prove",
-    # "setup", "batch", "sharded" or "complete")
+    # "setup", "batch", "sharded", "complete" or "mxu")
     ("mont_mul", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145", "prove"),
     # K1's product chained through jax_field.mont_pow's fori_loop, in one launch
     ("mont_pow", "keyless_zk_tpu_torch/csrc/mont_mul.cu", "keyless_zk_tpu/ops/pallas_field.py:145", "prove"),
@@ -190,20 +197,30 @@ KERNELS = [
     # K7 over a batch's (3R, B, Wn) window totals, B blocks in one launch
     ("horner_total_batched", "keyless_zk_tpu_torch/csrc/msm_reduce.cu", "keyless_zk_tpu/ops/pallas_msm.py:615",
      "batch"),
-    ("redc", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:115", "prove"),
-    ("redc_twiddle", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:122", "prove"),
+    # K8 off the prover's path: the matmul plan's (3, 2^21) iNTT and NTT ("mxu")
+    ("redc", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:115", "mxu"),
+    ("redc_twiddle", "keyless_zk_tpu_torch/csrc/redc.cu", "keyless_zk_tpu/ops/pallas_redc.py:122", "mxu"),
     # K9 replaces no Pallas kernel: the JAX package's coefficient evaluation is XLA
     ("eval_ab", "keyless_zk_tpu_torch/csrc/eval_ab.cu", "none (keyless_zk_tpu/groth16/prover.py:80 _eval_ab_fused, XLA)",
      "prove"),
+    # K10 replaces, on the prover's path, the matmul NTT of keyless_zk_tpu/ops/mxu_ntt.py with K8
+    ("ntt_pass", "keyless_zk_tpu_torch/csrc/ntt.cu",
+     "none (the matmul chain of keyless_zk_tpu/ops/mxu_ntt.py and K8, pallas_redc.py:115 / :122, on this path)",
+     "prove"),
 ]
+
+# K10's launches a proof: two passes of the h chain's iNTT and two of its NTT
+NTT_PROVE_LAUNCHES = 4
 
 # K1 product launches of one proof: the 758 that the proof made (H100 runs)
 # when each Fermat chain was one launch per product, less the decode's two
 # chains of 364 products each (Fq p - 2: 254 squarings, 110 set bits),
 # which `mont_pow` runs in two launches, less the products of the 11
-# coefficient chunks, which K9 (`eval_ab`) makes in one launch. The 19 are
-# the merges' to_mont, the h scalars' four and the decode's products around
-# the inversions.
+# coefficient chunks, which K9 (`eval_ab`) makes in one launch. The 19 were
+# the merges' to_mont, the h scalars' products and the decode's products
+# around the inversions; K10 makes the h scalars' products (c = a*b, n^-1,
+# the coset shift, A*B, from_mont) inside its passes since, so a proof
+# makes five fewer: 19 stays the bound.
 K1_PROVE_LAUNCHES = 758 - 2 * 364 - 11
 
 R_FIXED, S_FIXED = 0x1234567890ABCDEF1234567890ABCDEF, 0xFEDCBA0987654321FEDCBA0987654321
@@ -296,11 +313,12 @@ def spin_up(fn, seconds: float = 1.0) -> None:
 def plain_kernels():
     """Route the main path's kernel wrappers to their plain versions on the
     card (comparison runs only; the plain versions launch no kernel)."""
-    from keyless_zk_tpu_torch.ops import cuda_curve, cuda_eval_ab, cuda_field, cuda_msm, cuda_redc
+    from keyless_zk_tpu_torch.ops import cuda_curve, cuda_eval_ab, cuda_field, cuda_msm, cuda_ntt, cuda_redc
 
     saved = {}
     swaps = {
         cuda_eval_ab: {"eval_ab": cuda_eval_ab.eval_ab_plain},
+        cuda_ntt: {"ntt_pass": cuda_ntt.ntt_pass_plain},
         cuda_field: {"mont_mul": cuda_field.mont_mul_plain, "mont_pow": cuda_field.mont_pow_plain},
         cuda_msm: {
             "window_scan": cuda_msm.window_scan_plain,
@@ -606,6 +624,8 @@ def _signature(name: str, args) -> tuple:
     def sig(a):
         if hasattr(a, "shape"):
             return tuple(a.shape)
+        if hasattr(a, "log_line"):  # one pass of K10: its domain, line and stride
+            return ("pass", a.log_n, a.log_line, a.log_stride)
         if isinstance(a, tuple):
             return tuple(sig(x) for x in a)
         return a
@@ -662,12 +682,18 @@ def capture_calls(module, names, store: dict, at: int = 0, seen: dict | None = N
 
 MSM_KERNELS = ("window_scan", "boundary_merge", "weighted_bucket_total", "horner_total")
 REDC_KERNELS = ("redc", "redc_twiddle")
+# K10's input and output formats by number (ops/cuda_ntt.py IN_*, OUT_*)
+NTT_FORMATS = (("words", "limbs", "a|b"), ("words", "limbs", "h"))
 
 
 def _describe(sig: tuple) -> str:
     name, *rest = sig
     if name in REDC_KERNELS:
         return f"N={rest[0][1]}"
+    if name == "ntt_pass":
+        src, (_, log_n, log_line, log_stride), batch, in_fmt, out_fmt, scale = rest
+        return (f"pass of 2^{log_line} points 2^{log_stride} apart, domain 2^{log_n}, batch {batch}, "
+                f"{NTT_FORMATS[0][in_fmt]} in, {NTT_FORMATS[1][out_fmt]} out, scale {scale or 'none'}")
     tag, *rest = rest
     if name in ("window_scan", "window_scan_complete"):
         (L, V), _, (rows, _), _, (_, n_seg) = rest
@@ -1132,17 +1158,55 @@ def raw_table_msms(prover, w, dev, records: dict, counts: dict) -> None:
 
 
 def redc_kernel_checks(store: dict, records: dict) -> None:
-    """Each captured main-path call of K8 (both bodies) through the kernel
-    and through its plain version."""
+    """Each captured call of K8 (both bodies) of the matmul plan's iNTT and
+    NTT through the kernel and through its plain version."""
     from keyless_zk_tpu_torch.ops import cuda_redc
 
     for name in REDC_KERNELS:
-        check(any(sig[0] == name for sig in store), f"no main-path call of {name} captured")
+        check(any(sig[0] == name for sig in store), f"no call of {name} captured")
     plains = {"redc": cuda_redc.redc_columns, "redc_twiddle": cuda_redc.redc_twiddle_plain}
     for sig, args in store.items():
         n = args[0].shape[1]
         imad = n * (REDC_IMAD + (FQ_MUL_IMAD if sig[0] == "redc_twiddle" else 0))
         compare(records, sig[0], getattr(cuda_redc, sig[0]), plains[sig[0]], args, _describe(sig), imad=imad)
+
+
+def ntt_pass_products(n: int, batch: int, log_line: int, final: bool, *, ab: bool = False, scale: bool = False,
+                      h: bool = False) -> int:
+    """Montgomery products of one K10 pass over `batch` vectors of n points:
+    (L - 1) / 2 a point for 2^L-point lines (the last stage's twiddle is 1),
+    two a point for the four-step twiddle of a pass that is not the last
+    (its two factors' product and the multiply), and the fusions': c = a * b
+    (n), a scale (one a point), h = A * B - C out of Montgomery form (2n)."""
+    per_point = max(log_line - 1, 0) / 2 + (0 if final else 2)
+    return int(batch * n * per_point + (n if ab else 0) + (batch * n if scale else 0) + (2 * n if h else 0))
+
+
+def ntt_products(plan, batch: int, *, chain: bool = False, scale: bool = False) -> int:
+    """Montgomery products of one transform of K10's plan (`chain`: the
+    fused h chain, an iNTT and an NTT)."""
+    passes = plan.passes
+    total = 0
+    for i, p in enumerate(passes):
+        last = i == len(passes) - 1
+        total += ntt_pass_products(plan.n, batch, p.log_line, p.final, ab=chain and i == 0,
+                                   scale=(chain or scale) and last)
+        if chain:
+            total += ntt_pass_products(plan.n, batch, p.log_line, p.final, h=last)
+    return total
+
+
+def ntt_pass_checks(store: dict, records: dict) -> None:
+    """Each captured call of K10 (one pass) through the kernel and through its
+    plain version (K1 routed to its plain version too), with the bound."""
+    from keyless_zk_tpu_torch.ops import cuda_ntt
+
+    check(len(store) == NTT_PROVE_LAUNCHES, f"{len(store)} distinct K10 passes captured, not {NTT_PROVE_LAUNCHES}")
+    for sig, args in store.items():
+        _, p, batch, in_fmt, out_fmt, scale = args
+        imad = FQ_MUL_IMAD * ntt_pass_products(1 << p.log_n, batch, p.log_line, p.final, ab=in_fmt == cuda_ntt.IN_AB,
+                                               scale=scale is not None, h=out_fmt == cuda_ntt.OUT_H)
+        compare(records, "ntt_pass", cuda_ntt.ntt_pass, cuda_ntt.ntt_pass_plain, args, _describe(sig), imad=imad)
 
 
 # ---- proofs ---------------------------------------------------------------------
@@ -1174,8 +1238,8 @@ def small_proof(dev) -> None:
     gpu = Groth16Prover(key.pk, dev)
     cpu = Groth16Prover(key.pk, "cpu")
     log(f"small proof plans: gpu {type(gpu.plan).__name__}, cpu {type(cpu.plan).__name__}")
-    check(type(gpu.plan).__name__ == "MxuNTTPlan", "the card's small proof does not run the matmul NTT")
-    gpu_proof, _ = prove_checked(gpu, key, R_FIXED, S_FIXED, "small proof (gpu, matmul NTT, domain 2^10)")
+    check(type(gpu.plan).__name__ == "CudaNTTPlan", "the card's small proof does not run K10's NTT")
+    gpu_proof, _ = prove_checked(gpu, key, R_FIXED, S_FIXED, "small proof (gpu, K10 NTT, domain 2^10)")
     torch.set_num_threads(8)
     cpu_proof, _ = prove_checked(cpu, key, R_FIXED, S_FIXED, "small proof (cpu plain, butterfly NTT, domain 2^10)")
     equal = gpu_proof == cpu_proof
@@ -1251,35 +1315,76 @@ def eval_ab_planted(dev, records: dict) -> None:
         del table
 
 
-def ntt_plans(prover, w, dev) -> None:
-    """The full-width h scalars under the matmul plan (the prover's) and the
-    butterfly plan on the card: equal; each plan's iNTT and NTT ms on the
-    batched (3, 2^21) input, and the int8 product of one radix-128 pass."""
+def ntt_plans(prover, w, dev, records: dict, counts_mxu: dict) -> None:
+    """K10 (the prover's plan) at the keyless shape, (3, 2^21) random values
+    with 0, 1 and r - 1 planted: its NTT, iNTT and fused h chain against the
+    plain version, timed beside their bounds; the full-width h scalars under
+    K10, the matmul plan (K8) and the butterfly plan on the card: equal;
+    each plan's iNTT, NTT and h chain ms in turns (K10's chain also unfused:
+    its public transforms with K1's pointwise products between); K8's
+    calls captured from the matmul plan's iNTT and NTT against their plain
+    versions, with its launches; the int8 product of one matmul pass."""
     import torch
 
     from keyless_zk_tpu_torch.fields import torch_field as tf
+    from keyless_zk_tpu_torch.ops import _build, cuda_redc
+    from keyless_zk_tpu_torch.ops.mxu_ntt import MxuNTTPlan
     from keyless_zk_tpu_torch.ops.ntt import NTTPlan
 
-    matmul = prover.plan
-    got = prover._h_scalars(w)
-    butterfly = NTTPlan(prover.domain_pow, dev)
-    prover.plan = butterfly
-    try:
-        want = prover._h_scalars(w)
-    finally:
-        prover.plan = matmul
-    equal = torch.equal(got, want)
-    log(f"full width: h scalars matmul plan == butterfly plan: {equal}")
-    check(equal, "h scalars differ between the matmul and the butterfly NTT plans")
+    k10 = prover.plan
+    n, dp = prover.pk.domain_size, prover.domain_pow
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x = rand_field(gen, 3 * n, tf.FR, dev).reshape(3, n, 16)
+    edges = tf.encode_ints([0, 1, tf.FR.p - 1], tf.FR, device=dev)
+    for i in (0, n // 2, n - 3):
+        x[:, i : i + 3] = edges
+    ab = torch.cat([x[0], x[1]])
+    note = f"(3, 2^{dp}) random, 0 / 1 / r - 1 planted"
+    compare(records, "ntt_pass", k10.ntt, k10.ntt, (x,), f"ntt {note}", imad=FQ_MUL_IMAD * ntt_products(k10, 3))
+    compare(records, "ntt_pass", k10.intt, k10.intt, (x,), f"intt {note}",
+            imad=FQ_MUL_IMAD * ntt_products(k10, 3, scale=True))
+    compare(records, "ntt_pass", k10.h_scalars, k10.h_scalars, (ab,), f"h chain (iNTT, coset, NTT, h) {note}",
+            imad=FQ_MUL_IMAD * ntt_products(k10, 3, chain=True))
 
-    n = prover.pk.domain_size
-    ab = prover._eval_ab(w)
-    abc = torch.stack([ab[:n], ab[n:], tf.mont_mul(ab[:n], ab[n:], tf.FR)])
-    for label, plan in (("matmul", matmul), ("butterfly", butterfly), ("matmul", matmul), ("butterfly", butterfly)):
-        _, intt_ms = cuda_ms(lambda: plan.intt(abc), reps=3)
-        _, ntt_ms = cuda_ms(lambda: plan.ntt(abc), reps=3)
-        log(f"ntt plan {label} (3, 2^{prover.domain_pow}): intt {intt_ms:.3f} ms, ntt {ntt_ms:.3f} ms")
+    def chain_unfused(plan, ab):
+        a, b = ab[:n], ab[n:]
+        abc = plan.intt(torch.stack([a, b, tf.mont_mul(a, b, tf.FR)]))
+        abc = plan.ntt(tf.mont_mul(abc, k10.coset_powers(), tf.FR))
+        return tf.from_mont(tf.sub(tf.mont_mul(abc[0], abc[1], tf.FR), abc[2], tf.FR), tf.FR)
+
+    matmul = MxuNTTPlan(dp, dev)
+    butterfly = NTTPlan(dp, dev)
+    got = prover._h_scalars(w)
+    equal = {}
+    for label, plan in (("matmul", matmul), ("butterfly", butterfly)):
+        prover.plan = plan
+        try:
+            equal[label] = torch.equal(prover._h_scalars(w), got)
+        finally:
+            prover.plan = k10
+    equal["K10 unfused"] = torch.equal(chain_unfused(k10, ab), k10.h_scalars(ab))
+    log(f"full width: h scalars, K10 (fused) == {json.dumps(equal)}")
+    check(all(equal.values()), "the h scalars differ between K10 and another NTT plan or its unfused chain")
+    for label, plan in (("K10", k10), ("matmul", matmul), ("butterfly", butterfly), ("K10", k10),
+                        ("matmul", matmul), ("butterfly", butterfly)):
+        _, intt_ms = cuda_ms(lambda: plan.intt(x), reps=3)
+        _, ntt_ms = cuda_ms(lambda: plan.ntt(x), reps=3)
+        _, chain_ms = cuda_ms(lambda: chain_unfused(plan, ab), reps=3)
+        fused = f", fused h chain {cuda_ms(lambda: k10.h_scalars(ab), reps=5)[1]:.3f} ms" if plan is k10 else ""
+        log(f"ntt plan {label} (3, 2^{dp}): intt {intt_ms:.3f} ms, ntt {ntt_ms:.3f} ms, "
+            f"unfused h chain {chain_ms:.3f} ms{fused}")
     del butterfly
+
+    # K8, off the prover's path: the matmul plan's iNTT and NTT
+    calls: dict = {}
+    _build.reset_launch_counts()
+    with capture_calls(cuda_redc, REDC_KERNELS, calls):
+        matmul.ntt(matmul.intt(x))
+    counts_mxu.update(_build.launch_counts())
+    log(f"launch counts (the matmul plan's iNTT and NTT of (3, 2^{dp})): "
+        f"{json.dumps({k: v for k, v in counts_mxu.items() if v})}")
+    redc_kernel_checks(calls, records)
+    del calls
 
     # the int8 product of one radix-128 pass over the batched input
     w_big = matmul.tables[0][0]
@@ -1302,11 +1407,18 @@ def check_k1_launches(counts: dict, path: str) -> None:
           f"{path}: {counts['mont_mul']} K1 product launches, more than {K1_PROVE_LAUNCHES}")
 
 
-def full_width(dev, counts_out: dict, records: dict) -> None:
+def check_ntt_launches(counts: dict, path: str, proofs: int = 1) -> None:
+    """K10 on `proofs` proofs: NTT_PROVE_LAUNCHES passes each; K8 none."""
+    got = counts.get("ntt_pass", 0)
+    check(got == NTT_PROVE_LAUNCHES * proofs, f"{path}: {got} K10 launches, not {NTT_PROVE_LAUNCHES * proofs}")
+    check(counts.get("redc", 0) + counts.get("redc_twiddle", 0) == 0, f"{path}: K8 launched")
+
+
+def full_width(dev, counts_out: dict, records: dict, counts_mxu: dict) -> None:
     import torch
 
     from keyless_zk_tpu_torch.groth16.prover import Groth16Prover
-    from keyless_zk_tpu_torch.ops import _build, cuda_field, cuda_msm, cuda_redc, testgen
+    from keyless_zk_tpu_torch.ops import _build, cuda_field, cuda_msm, cuda_ntt, testgen
 
     t0 = time.perf_counter()
     key = testgen.synthetic_key(2026, device=dev, **testgen.KEYLESS_SHAPE)
@@ -1317,19 +1429,19 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     prover = Groth16Prover(key.pk, dev)
     torch.cuda.synchronize()
     log(f"full width: prover construction {time.perf_counter() - t0:.1f} s, NTT plan {type(prover.plan).__name__}")
-    check(type(prover.plan).__name__ == "MxuNTTPlan", "the full-width proof does not run the matmul NTT")
+    check(type(prover.plan).__name__ == "CudaNTTPlan", "the full-width proof does not run K10's NTT")
 
     msm_calls: dict = {}
-    redc_calls: dict = {}
+    ntt_calls: dict = {}
     pow_calls: dict = {}
-    with capture_calls(cuda_msm, MSM_KERNELS, msm_calls), capture_calls(cuda_redc, REDC_KERNELS, redc_calls), \
+    with capture_calls(cuda_msm, MSM_KERNELS, msm_calls), capture_calls(cuda_ntt, ("ntt_pass",), ntt_calls), \
             capture_calls(cuda_field, ("mont_pow",), pow_calls):
-        prove_checked(prover, key, R_FIXED, S_FIXED, "full proof warm-up (K4-K8 and mont_pow inputs captured)")
+        prove_checked(prover, key, R_FIXED, S_FIXED, "full proof warm-up (K4-K7, K10 and mont_pow inputs captured)")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
     msm_kernel_checks(msm_calls, records, dev)
     del msm_calls
-    redc_kernel_checks(redc_calls, records)
-    del redc_calls
+    ntt_pass_checks(ntt_calls, records)
+    del ntt_calls
     decode_pow_checks(pow_calls, records)
     del pow_calls
     torch.cuda.empty_cache()
@@ -1354,6 +1466,7 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     check_k1_launches(counts_out, "the full-width proof")
     check(counts_out.get("window_scan_complete", 0) == 0, "the full-width proof launched the complete scan")
     check(counts_out.get("eval_ab", 0) == 1, f"{counts_out.get('eval_ab', 0)} eval_ab launches in one proof, not 1")
+    check_ntt_launches(counts_out, "the full-width proof")
 
     w = torch.from_numpy(key.witness.astype("int32")).to(dev)
     got = prover._h_scalars(w)
@@ -1364,7 +1477,7 @@ def full_width(dev, counts_out: dict, records: dict) -> None:
     check(equal, "h scalars differ between the kernel path and the plain path")
     eval_ab_checks("full width", prover, w, records)
     eval_ab_planted(dev, records)
-    ntt_plans(prover, w, dev)
+    ntt_plans(prover, w, dev, records, counts_mxu)
 
 
 # ---- the setup path ------------------------------------------------------------
@@ -2089,7 +2202,7 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash, records: dict, counts
     import torch
 
     from keyless_zk_tpu_torch.groth16 import prover as prover_mod
-    from keyless_zk_tpu_torch.ops import _build
+    from keyless_zk_tpu_torch.ops import _build, cuda_ntt
 
     prover, prog = state.prover, state.witness_prog
     t0 = time.perf_counter()
@@ -2101,14 +2214,18 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash, records: dict, counts
 
     real_blind, points = prover_mod.blind, []
     prover_mod.blind = lambda pk, *args: points.append(args[:5]) or real_blind(pk, *args)
+    ntt_calls: dict = {}
     try:
-        proof, wall = timed_proof(prover, witness, R_FIXED, S_FIXED)
+        with capture_calls(cuda_ntt, ("ntt_pass",), ntt_calls):
+            proof, wall = timed_proof(prover, witness, R_FIXED, S_FIXED)
     finally:
         prover_mod.blind = real_blind
     log(f"keyless proof warm-up: wall {wall:.1f} ms")
     log("  phases (ms): " + json.dumps({k: round(v, 3) for k, v in prover.phase_ms.items()}))
     verify_checked(state.vk, [public_hash], proof, "keyless proof warm-up", tamper=True)
     blind_against_plain(prover.pk, points[0], proof)
+    ntt_pass_checks(ntt_calls, records)
+    del ntt_calls
     w = torch.from_numpy(witness.astype(np.int32)).to(dev)
     msm_against_double_and_add(prover, w)
     raw_table_msms(prover, w, dev, records, counts["complete"])
@@ -2136,6 +2253,7 @@ def keyless_proofs(dev, state, kw, wires_ref, public_hash, records: dict, counts
     check_k1_launches(prove_counts, "the keyless proof")
     check(prove_counts.get("window_scan_complete", 0) == 0, "the keyless proof launched the complete scan")
     check(prove_counts.get("eval_ab", 0) == 1, "the keyless proof did not launch eval_ab once")
+    check_ntt_launches(prove_counts, "the keyless proof")
     eval_ab_checks("keyless path", prover, w, records)
 
 
@@ -2249,6 +2367,7 @@ def batch_proofs(dev, state, records: dict, counts: dict) -> None:
                 if path == "prove":
                     check(per_batch.get(name, 0) > 0, f"kernel {name} was not launched by a batch of {B}")
             check(per_batch["eval_ab"] == B, f"{per_batch['eval_ab']} eval_ab launches in a batch of {B}, not {B}")
+            check_ntt_launches(per_batch, f"a batch of {B}", proofs=B)
             if B == 4:
                 counts.update(per_batch)
         counts["horner_total_batched"] = counts["horner_total"]
@@ -2487,7 +2606,8 @@ def timed_proof(prover, witness, r, s):
 
 PTXAS_KERNELS = ("mont_pow_kernel", "madd_kernel", "dbl_kernel", "add_kernel", "window_scan_kernel",
                  "window_scan_complete_kernel",
-                 "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel", "eval_ab_kernel")
+                 "merge_tile_kernel", "bucket_walk_kernel", "point_sum_kernel", "horner_kernel", "eval_ab_kernel",
+                 "ntt_pass_kernel")
 
 
 def main() -> int:
@@ -2512,7 +2632,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     records: dict = {}
-    counts: dict = {"prove": {}, "setup": {}, "batch": {}, "sharded": {}, "circom": {}, "complete": {}}
+    counts: dict = {"prove": {}, "setup": {}, "batch": {}, "sharded": {}, "circom": {}, "complete": {}, "mxu": {}}
     try:
         log(f"card: {card}")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -2520,16 +2640,16 @@ def main() -> int:
         _build.library()
         log(f"build: {secs:.1f} s -> {lib}")
         report = _build.ptxas_report((lib.parent / "build.log").read_text(), PTXAS_KERNELS)
-        log("ptxas (K1 mont_pow, K3-K7, K9): " + json.dumps(report))
+        log("ptxas (K1 mont_pow, K3-K7, K9, K10): " + json.dumps(report))
         check(all(any(k.startswith(name + " ") for k in report) for name in PTXAS_KERNELS),
-              "build.log lacks the ptxas report of a K1 mont_pow, K3-K7 or K9 kernel")
+              "build.log lacks the ptxas report of a K1 mont_pow, K3-K7, K9 or K10 kernel")
         bench_quick()
         mont_mul_checks(dev, records)
         mont_pow_checks(dev, records)
         k3_checks(dev, records)
         complete_planted(dev, records)
         small_proof(dev)
-        full_width(dev, counts["prove"], records)
+        full_width(dev, counts["prove"], records, counts["mxu"])
         torch.cuda.empty_cache()
         setup_path(dev, records, counts)
         torch.cuda.empty_cache()

@@ -8,8 +8,9 @@ Per proof, on the prover's device:
   4. the h scalars (`_h_scalars`): coefficient-table evaluation into the
      a|b vectors [ops/cuda_eval_ab.py], c = a*b, one batched (3, n)
      iNTT -> coset shift -> NTT, h = a*b - c, from_mont
-                                         [ops/mxu_ntt.py on the card,
-                                          ops/ntt.py on the CPU]
+                                         [ops/cuda_ntt.py on the card: K10's
+                                          butterfly passes, the chain fused
+                                          into them; ops/ntt.py on the CPU]
   5. the H MSM;
   6. decode the five results to affine (one batched inversion per group,
      one readback each);
@@ -44,8 +45,8 @@ from ..fields import torch_field as tf
 from ..fields.limbs import NUM_LIMBS
 from ..fields.torch_field import FR
 from ..ops import cuda_eval_ab
+from ..ops.cuda_ntt import CudaNTTPlan, get_cuda_plan
 from ..ops.msm import msm
-from ..ops.mxu_ntt import get_mxu_plan
 from ..ops.ntt import NTTPlan
 from . import pairing_native
 from .zkey import ProvingKey
@@ -125,12 +126,11 @@ def _limbs(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _pick_plan(domain_pow: int, device: torch.device):
-    """The matmul NTT (ops/mxu_ntt.py, K8) on the card for a domain of at
-    least one radix-128 pass; the butterfly plan on the CPU. Decided by
-    the device, as the JAX package decides by backend
-    (keyless_zk_tpu/groth16/prover.py `_pick_plan`)."""
-    if device.type == "cuda" and domain_pow >= 7:
-        return get_mxu_plan(domain_pow, device)
+    """K10's plan (ops/cuda_ntt.py) on the card, for every domain; the
+    butterfly plan on the CPU. Decided by the device, as the JAX package
+    decides by backend (keyless_zk_tpu/groth16/prover.py `_pick_plan`)."""
+    if device.type == "cuda":
+        return get_cuda_plan(domain_pow, device)
     return NTTPlan(domain_pow, device)
 
 
@@ -206,9 +206,13 @@ class Groth16Prover:
         return cuda_eval_ab.eval_ab(witness, self.coef_table)
 
     def _h_scalars(self, witness: torch.Tensor) -> torch.Tensor:
-        """Witness -> MSM_H scalar vector (the NTT phase), on the device."""
+        """Witness -> MSM_H scalar vector (the NTT phase), on the device.
+        Under K10's plan the chain after the evaluation runs fused into the
+        plan's passes (`CudaNTTPlan.h_scalars`)."""
         n = self.pk.domain_size
         ab = self._eval_ab(witness)
+        if isinstance(self.plan, CudaNTTPlan):
+            return self.plan.h_scalars(ab)
         a, b = ab[:n], ab[n:]
         c = tf.mont_mul(a, b, FR)
         # one batched (3, n, 16) iNTT -> coset shift -> NTT sweep

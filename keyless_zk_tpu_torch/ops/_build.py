@@ -133,6 +133,7 @@ def load(path: Path) -> ctypes.CDLL:
         "kzk_curve_dbl": [P, P, P, P, P, P, LL, I, P],
         "kzk_curve_add": [P, P, P, P, P, P, P, P, P, LL, I, P],
         "kzk_eval_ab": [P, LL, P, P, P, P, P, LL, LL, I, I, P, P, P, P],
+        "kzk_ntt_pass": [P, P, LL, I, I, I, I, I, I, I, I, P, P, P, I, P, I, I, I, P],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

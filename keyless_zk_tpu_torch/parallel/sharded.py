@@ -16,9 +16,9 @@ its own slice, and the collectives exchange what the slices need:
   points.)
 - `four_step_ntt`: one 2^k NTT split as n = n1 * n2: local n2-point NTTs,
   the twiddle matrix (K1), ONE all-to-all, local n1-point NTTs. The local
-  plans are the prover's (`_pick_plan`): the matmul NTT with K8 on the
-  card. The result is all-gathered, so every process returns the whole
-  transform.
+  plans are the prover's (`_pick_plan`): K10's butterfly passes on the
+  card (ops/cuda_ntt.py, its public `ntt` / `intt`, natural order). The
+  result is all-gathered, so every process returns the whole transform.
 - `sharded_ntt_batch`: a batch of polynomials, one slice per process.
 """
 

@@ -1,8 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: without a card (CUDA reported absent), each one called with its
 default device raises instead of falling back to the CPU, and each one runs
-when asked for the CPU. The prover picks its NTT plan by device: the matmul
-NTT on a card for a domain of at least 2^7, the butterfly NTT otherwise."""
+when asked for the CPU. The prover picks its NTT plan by device: K10's plan
+on a card for every domain, the butterfly NTT on the CPU."""
 
 import pytest
 import torch
@@ -10,7 +10,7 @@ import torch
 from keyless_zk_tpu_torch import device as devices
 from keyless_zk_tpu_torch.circuits import ConstraintSystem, groth16_setup, r1cs_from_cs
 from keyless_zk_tpu_torch.groth16 import Groth16Prover, prover
-from keyless_zk_tpu_torch.ops import mxu_ntt, testgen
+from keyless_zk_tpu_torch.ops import cuda_ntt, mxu_ntt, testgen
 from keyless_zk_tpu_torch.ops.ntt import NTTPlan
 
 torch.set_num_threads(1)
@@ -41,13 +41,15 @@ def test_default_device_is_the_card():
         lambda: NTTPlan(4),
         lambda: mxu_ntt.MxuNTTPlan(7),
         lambda: mxu_ntt.get_mxu_plan(7),
+        lambda: cuda_ntt.CudaNTTPlan(4),
+        lambda: cuda_ntt.get_cuda_plan(7),
         lambda: testgen.random_scalars(4),
         lambda: testgen.random_points(4),
         lambda: testgen.synthetic_key(1, **SMALL_KEY),
         lambda: groth16_setup(_tiny_r1cs(), toxic={"tau": 9, "alpha": 3, "beta": 4, "gamma": 5, "delta": 6}),
     ],
-    ids=["NTTPlan", "MxuNTTPlan", "get_mxu_plan", "random_scalars", "random_points", "synthetic_key",
-         "groth16_setup"],
+    ids=["NTTPlan", "MxuNTTPlan", "get_mxu_plan", "CudaNTTPlan", "get_cuda_plan", "random_scalars",
+         "random_points", "synthetic_key", "groth16_setup"],
 )
 def test_entry_points_refuse_a_missing_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -64,12 +66,11 @@ def test_prover_refuses_a_missing_card_and_runs_on_the_cpu(no_card):
 
 def test_plan_is_picked_by_device(monkeypatch):
     picked = []
-    monkeypatch.setattr(prover, "get_mxu_plan", lambda dp, dev: picked.append((dp, dev)) or "matmul")
-    card = torch.device("cuda", 0)
-    assert prover._pick_plan(21, card) == "matmul"
-    assert prover._pick_plan(7, card) == "matmul"
-    assert picked == [(21, card), (7, card)]
+    monkeypatch.setattr(prover, "get_cuda_plan", lambda dp, dev: picked.append((dp, dev)) or "k10")
     monkeypatch.setattr(prover, "NTTPlan", lambda dp, dev: ("butterfly", dp, dev))
-    assert prover._pick_plan(6, card) == ("butterfly", 6, card)
+    card = torch.device("cuda", 0)
+    for dp in (21, 7, 6, 1):
+        assert prover._pick_plan(dp, card) == "k10"
+    assert picked == [(21, card), (7, card), (6, card), (1, card)]
     cpu = torch.device("cpu")
     assert prover._pick_plan(21, cpu) == ("butterfly", 21, cpu)
