@@ -43,8 +43,8 @@ Phases, in order; any failure exits non-zero:
    bound counts the P == Q lanes, found in the stream, as affine
    doublings) and the distinct body not;
 5. a small proof (synthetic key at domain 2^10) on the card, which runs
-   K10's NTT, and on the CPU through the plain versions, which runs the
-   butterfly NTT, with the same r and s: the proofs must be equal, and
+   K10's NTT, and on the CPU through the plain versions, which runs K10's
+   plain passes, with the same r and s: the proofs must be equal, and
    equal to the key's discrete-log oracle;
 6. the prove path at the full keyless width (n_vars 1,377,553, domain 2^21,
    ~42.7M coefficients, synthetic key with known discrete logs): key
@@ -1143,10 +1143,10 @@ def raw_table_msms(prover, w, dev, records: dict, counts: dict) -> None:
           "the raw-table MSMs did not each launch the complete scan once, and the distinct one never")
     for name, (raw, sc, table, merge, curve) in runs.items():
         merged = prover._merge_scalars(w, merge)
-        want = prover._msm(table, merged, curve, c=_SPARSE_C)
+        want = msm(*table, merged, curve=curve, c=_SPARSE_C)
         equal = curve.decode_jacobian(got[name]) == curve.decode_jacobian(want)
         _, raw_ms = cuda_ms(lambda: msm(*raw, sc, curve=curve, c=_SPARSE_C, assume_distinct=False), reps=3)
-        _, dedup_ms = cuda_ms(lambda: prover._msm(table, merged, curve, c=_SPARSE_C), reps=3)
+        _, dedup_ms = cuda_ms(lambda: msm(*table, merged, curve=curve, c=_SPARSE_C), reps=3)
         log(f"complete body, raw table msm_{name}: {raw[2].shape[0]} rows ({table[2].shape[0]} distinct), "
             f"== the prover's MSM over its deduplicated table: {equal}; msm(assume_distinct=False) on the raw "
             f"table {raw_ms:.3f} ms, the prover's (distinct body) on the deduplicated table {dedup_ms:.3f} ms")
@@ -1218,7 +1218,7 @@ def prove_checked(prover, key, r, s, label):
     t0 = time.perf_counter()
     proof = prover.prove(key.witness, r=r, s=s)
     wall = (time.perf_counter() - t0) * 1e3
-    h = tf.decode_ints(prover.last_h, tf.FR)
+    h = tf.decode_ints(prover.last_h[0], tf.FR)
     want = testgen.expected_proof(key, h, r, s)
     ok = (proof.pi_a, proof.pi_b, proof.pi_c) == want
     log(f"{label}: wall {wall:.1f} ms, dlog oracle {'passed' if ok else 'FAILED'}")
@@ -1241,7 +1241,7 @@ def small_proof(dev) -> None:
     check(type(gpu.plan).__name__ == "CudaNTTPlan", "the card's small proof does not run K10's NTT")
     gpu_proof, _ = prove_checked(gpu, key, R_FIXED, S_FIXED, "small proof (gpu, K10 NTT, domain 2^10)")
     torch.set_num_threads(8)
-    cpu_proof, _ = prove_checked(cpu, key, R_FIXED, S_FIXED, "small proof (cpu plain, butterfly NTT, domain 2^10)")
+    cpu_proof, _ = prove_checked(cpu, key, R_FIXED, S_FIXED, "small proof (cpu plain, K10's plain passes, domain 2^10)")
     equal = gpu_proof == cpu_proof
     log(f"small proof: gpu == cpu: {equal}")
     check(equal, "the GPU proof differs from the CPU proof")
@@ -1354,14 +1354,9 @@ def ntt_plans(prover, w, dev, records: dict, counts_mxu: dict) -> None:
 
     matmul = MxuNTTPlan(dp, dev)
     butterfly = NTTPlan(dp, dev)
-    got = prover._h_scalars(w)
-    equal = {}
-    for label, plan in (("matmul", matmul), ("butterfly", butterfly)):
-        prover.plan = plan
-        try:
-            equal[label] = torch.equal(prover._h_scalars(w), got)
-        finally:
-            prover.plan = k10
+    got, ab_w = prover._h_scalars(w), prover._eval_ab(w)
+    equal = {label: torch.equal(chain_unfused(plan, ab_w), got)
+             for label, plan in (("matmul", matmul), ("butterfly", butterfly))}
     equal["K10 unfused"] = torch.equal(chain_unfused(k10, ab), k10.h_scalars(ab))
     log(f"full width: h scalars, K10 (fused) == {json.dumps(equal)}")
     check(all(equal.values()), "the h scalars differ between K10 and another NTT plan or its unfused chain")
@@ -1645,7 +1640,7 @@ def sharded_checks(res, prover, witness, proof, public: list, dev, records: dict
             log(f"sharded: four_step_ntt{' inverse' if inverse else ''} 2^{prover.domain_pow} == the plan's: "
                 f"{torch.equal(a, b)} ({ms:.3f} ms, the plan {plan_ms:.3f} ms)")
             check(torch.equal(a, b), "four_step_ntt differs from the prover's plan")
-        sc = prover._merge_scalars(prover.last_h, prover._merge_h)
+        sc = prover._merge_scalars(prover.last_h[0], prover._merge_h)
         a = G1_CURVE.decode_jacobian(_as_batch(sharded_msm(*prover.points_h, sc, curve=G1_CURVE, mesh=mesh)))
         b = G1_CURVE.decode_jacobian(_as_batch(msm(*prover.points_h, sc, curve=G1_CURVE)))
         log(f"sharded: sharded_msm == msm on the H table ({sc.shape[0]} rows): {a == b}")
@@ -1971,7 +1966,7 @@ def msm_against_double_and_add(prover, w) -> None:
         "b1": (prover.points_b1, prover._merge_b1, G1_CURVE, w),
         "b2": (prover.points_b2, prover._merge_b2, G2_CURVE, w),
         "c": (prover.points_c, prover._merge_c, G1_CURVE, w),
-        "h": (prover.points_h, prover._merge_h, G1_CURVE, prover.last_h),
+        "h": (prover.points_h, prover._merge_h, G1_CURVE, prover.last_h[0]),
     }
     for name, (points, merge, curve, scalars) in tables.items():
         sc = prover._merge_scalars(scalars, merge)
@@ -2299,8 +2294,8 @@ def batched_msms_equal(prover, bp, wits, dev) -> None:
         ("msm_h", prover.points_h, prover._merge_h, G1_CURVE, bp.last_h, {}),
     ):
         got = curve.decode_jacobian(msm_batch(*table, prover._merge_scalars(scalars, merge), curve=curve, **kw))
-        want = [curve.decode_jacobian(_as_batch(prover._msm(table, prover._merge_scalars(scalars[i], merge), curve,
-                                                             **kw)))[0] for i in range(len(wits))]
+        want = [curve.decode_jacobian(prover._msm(table, prover._merge_scalars(scalars[i : i + 1], merge), curve,
+                                                  **kw))[0] for i in range(len(wits))]
         log(f"batch: {name} of B = {len(wits)} == the single prover's {name} per element: {got == want}")
         check(got == want, f"the batched {name} differs from the single prover's")
 

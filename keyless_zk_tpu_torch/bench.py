@@ -291,10 +291,10 @@ def _msm_metric(metric: str, n: int, point_seed: int, scalar_seed: int, g2: bool
 def _ntt_metric(metric: str, domain_pow: int, seed: int, iters: int, baseline: float) -> dict:
     import torch
 
-    from .groth16.prover import _pick_plan
+    from .ops.cuda_ntt import get_cuda_plan
     from .ops.testgen import random_scalars
 
-    plan = _pick_plan(domain_pow, torch.device("cuda"))
+    plan = get_cuda_plan(domain_pow, torch.device("cuda"))
     poly = random_scalars(1 << domain_pow, seed=seed)
     t, samples, out = timeit(lambda: plan.ntt(poly), iters=iters)
     check_ntt(plan, poly, out)

@@ -36,9 +36,8 @@
 // write per interior bucket. The orchestrator (ops/msm.py) launches one
 // wave of lanes for the whole stream, so the slowest warps set its time.
 //
-// The complete body (`scan_law`, redesigned for Hopper; `scan_lane<F,
-// true>`, madd_complete in the distinct body's loop, is the first one,
-// which tools/kernel_variants.py `pr11` rebuilds for comparison):
+// The complete body (`scan_law`, redesigned for Hopper; the first one ran
+// madd_complete in the distinct body's loop, PERF.md's kernel table):
 // - G1 carries its accumulator in homogeneous projective coordinates and
 //   adds by ec.cuh `madd_proj`, a complete law with no branch, so a lane
 //   where P == Q costs what every other lane costs: in the first body the
@@ -75,14 +74,9 @@ __device__ __forceinline__ void load_affine(const int4* row, Fq2& x, Fq2& y) {
   y = {load_row<FqMod>(row + 8), load_row<FqMod>(row + 12)};
 }
 
-// One lane's walk. `Complete` picks the group law: madd_core (no P == Q
-// doubling, the body of pallas_msm `_scan_kernel_body(F, assume_distinct=
-// True)`) or madd_complete (its `assume_distinct=False` body: a partial sum
-// equal to the incoming point takes the affine doubling, behind a branch
-// that only the lanes it fires in pay for). The distinct body; with
-// `Complete`, the first complete body, which only tools/kernel_variants.py
-// builds now.
-template <class F, bool Complete>
+// One lane's walk of the distinct body: madd_core, no P == Q doubling (the
+// body of pallas_msm `_scan_kernel_body(F, assume_distinct=True)`).
+template <class F>
 __device__ __forceinline__ void scan_lane(const int32_t* __restrict__ keys, const int32_t* __restrict__ pay,
                                           const int32_t* __restrict__ table, const uint8_t* __restrict__ tinf,
                                           int32_t* __restrict__ tbl, long long n_seg, int32_t* __restrict__ hk,
@@ -114,10 +108,7 @@ __device__ __forceinline__ void scan_lane(const int32_t* __restrict__ keys, cons
     }
     is_head = t == 0 || (is_head && same);
     if (same) {
-      if constexpr (Complete)
-        acc = madd_complete(acc, x2, y2, q_inf);
-      else
-        acc = madd_core(acc, x2, y2, q_inf);
+      acc = madd_core(acc, x2, y2, q_inf);
     } else {
       acc = {x2, y2, q_inf ? Field<F>::zero() : Field<F>::one()};
     }
@@ -145,7 +136,7 @@ window_scan_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__
                    long long V) {
   long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (l >= V) return;
-  scan_lane<F, false>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
+  scan_lane<F>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
 }
 
 // ---- the complete body ---------------------------------------------------------

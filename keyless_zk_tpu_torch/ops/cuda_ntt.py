@@ -5,8 +5,9 @@ The plan (`CudaNTTPlan`) has the interface of ops/ntt.py's `NTTPlan`
 (`ntt`, `intt`, `coset_powers`; natural order in and out, (..., n, 16) int32
 Montgomery limbs) and one more method, `h_scalars`: the prover's iNTT ->
 coset shift -> NTT chain over the a|b vectors, fused into the passes. The
-prover takes it on the card for every domain (groth16/prover.py
-`_pick_plan`); it replaces the matmul NTT (ops/mxu_ntt.py, with K8) there.
+prover takes it on every device and for every domain (groth16/prover.py
+`Groth16Prover`); on the card it replaces the matmul NTT (ops/mxu_ntt.py,
+with K8).
 
 A transform of n = 2^D points runs as P passes (`split`: D cut into P
 parts of at most MAX_LOG bits, as even as they go), each one launch of

@@ -3,13 +3,13 @@ keyless_zk_tpu/parallel/batch_prover.py).
 
 The reference serializes proving behind a global mutex, one proof at a
 time per process (prover-service/src/request_handler/prover_state.rs:21,
-prover_handler.rs:266-268). Here requests queue up and are proven as a
-batch: the five MSMs of all B witnesses run as one batched MSM each
-(ops/msm.py `msm_batch`: one digit stream over the shared point table,
-one launch of each of K4-K7), the scalar merges as one segment sum per
-table, the decode as one batched inversion per group. The h scalars run
-per element, as in the JAX package, and the blinding tail per proof on
-the host.
+prover_handler.rs:266-268). Here requests queue up, and the worker hands
+each batch it drains to `Groth16Prover.prove_batch` (groth16/prover.py),
+which proves the batch in one sweep of the device: the five MSMs of all B
+witnesses as one batched MSM each, the scalar merges as one segment sum
+per table, the decode as one batched inversion per group, the h scalars
+per element and the blinding tail per proof on the host. This module is
+the queue.
 
 Unlike the JAX package, a batch is not padded to `max_batch`: the JAX
 package pads so that XLA compiles one shape, PyTorch compiles nothing,
@@ -27,18 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
-from ..groth16.prover import (
-    _SPARSE_C,
-    Groth16Prover,
-    PhaseTimer,
-    Proof,
-    _limbs,
-    _sample_fr,
-    blind,
-    check_witness_limbs,
-)
-from ..ops.msm import msm_batch
+from ..groth16.prover import Groth16Prover, Proof
 
 
 @dataclass
@@ -69,7 +58,6 @@ class BatchProver:
         self.prover = prover
         self.max_batch = max_batch
         self.phase_ms: dict[str, float] = {}
-        self.last_h: torch.Tensor | None = None
         self.batch_sizes: collections.deque = collections.deque(maxlen=1024)
         self._queue: queue.Queue[_Pending | None] = queue.Queue()
         self._stop = False
@@ -139,51 +127,18 @@ class BatchProver:
                     item.info = info
                     item.event.set()
 
-    # ---- batched pipeline --------------------------------------------------
+    # ---- the batch ----------------------------------------------------------
+
+    @property
+    def last_h(self) -> torch.Tensor | None:
+        """The last batch's (B, domain, 16) h scalars, the prover's own (a
+        second reference would keep them alive through the next batch)."""
+        return self.prover.last_h
 
     def prove_batch(self, witnesses: list[np.ndarray]) -> list[Proof]:
-        """Prove B witnesses in one device sweep; r and s are sampled per
-        proof, in order (r then s), as the JAX package samples them."""
-        p = self.prover
-        pk = p.pk
-        wls = [check_witness_limbs(pk, w) for w in witnesses]
-        B = len(wls)
-        if B == 0:
-            return []
-        timer = PhaseTimer(p.device)
-        w = torch.empty((B, *wls[0].shape), dtype=torch.int32, device=p.device)
-        for i, wl in enumerate(wls):  # element by element: no (B, n_vars, 16) host copy
-            w[i] = _limbs(wl, p.device)
-        timer.mark("upload")
-        # merge duplicate-row scalars per table, all B vectors in one segment
-        # sum (the deduped tables hold n_unique rows)
-        merged = [p._merge_scalars(w, m) for m in (p._merge_a, p._merge_b1, p._merge_b2, p._merge_c)]
-        timer.mark("merges")
-        outs = {}
-        for name, table, scalars, curve in (("msm_a", p.points_a, merged[0], G1_CURVE),
-                                            ("msm_b1", p.points_b1, merged[1], G1_CURVE),
-                                            ("msm_b2", p.points_b2, merged[2], G2_CURVE),
-                                            ("msm_c", p.points_c, merged[3], G1_CURVE)):
-            outs[name] = msm_batch(*table, scalars, curve=curve, c=_SPARSE_C)
-            timer.mark(name)
-        del merged
-        h = torch.stack([p._h_scalars(w[i]) for i in range(B)])
-        self.last_h = h
-        timer.mark("h_scalars")
-        outs["msm_h"] = msm_batch(*p.points_h, p._merge_scalars(h, p._merge_h), curve=G1_CURVE)
-        timer.mark("msm_h")
-        g1 = JacPoint(*(torch.cat(cs) for cs in zip(outs["msm_a"], outs["msm_b1"], outs["msm_c"], outs["msm_h"])))
-        g1_pts = G1_CURVE.decode_jacobian(g1)  # 4B points: a, b1, c, h per element
-        b2_pts = G2_CURVE.decode_jacobian(outs["msm_b2"])
-        timer.mark("decode")
-        phase_ms = timer.phase_ms() if timer.timed else {}
-
-        t0 = time.perf_counter()
-        proofs = []
-        for i in range(B):
-            r, s = _sample_fr(), _sample_fr()
-            a_pt, b1_pt, c_pt, h_pt = (g1_pts[k * B + i] for k in range(4))
-            proofs.append(blind(pk, a_pt, b1_pt, b2_pts[i], c_pt, h_pt, r, s))
-        phase_ms["blind"] = (time.perf_counter() - t0) * 1e3
-        self.phase_ms = phase_ms
+        """Prove B witnesses in one device sweep (`Groth16Prover.prove_batch`,
+        r and s sampled per proof); then `phase_ms` and `last_h` are the
+        batch's."""
+        proofs = self.prover.prove_batch(witnesses)
+        self.phase_ms = self.prover.phase_ms
         return proofs

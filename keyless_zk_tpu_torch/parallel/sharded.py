@@ -16,9 +16,10 @@ its own slice, and the collectives exchange what the slices need:
   points.)
 - `four_step_ntt`: one 2^k NTT split as n = n1 * n2: local n2-point NTTs,
   the twiddle matrix (K1), ONE all-to-all, local n1-point NTTs. The local
-  plans are the prover's (`_pick_plan`): K10's butterfly passes on the
-  card (ops/cuda_ntt.py, its public `ntt` / `intt`, natural order). The
-  result is all-gathered, so every process returns the whole transform.
+  plans are the prover's: K10's butterfly passes (ops/cuda_ntt.py
+  `get_cuda_plan`, its public `ntt` / `intt`, natural order; their plain
+  versions on the CPU). The result is all-gathered, so every process
+  returns the whole transform.
 - `sharded_ntt_batch`: a batch of polynomials, one slice per process.
 """
 
@@ -36,6 +37,7 @@ from ..fields import torch_field as tf
 from ..fields.torch_field import FR
 from ..ops import cuda_curve
 from ..ops.cuda_msm import planes_to_point, point_to_planes
+from ..ops.cuda_ntt import get_cuda_plan
 from ..ops.msm import msm
 from ..ops.ntt import geometric_powers
 
@@ -127,13 +129,6 @@ def _twiddle_matrix(w_mont: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def _local_plan(domain_pow: int, device: torch.device):
-    from ..groth16.prover import _pick_plan
-
-    return _pick_plan(domain_pow, device)
-
-
-@functools.lru_cache(maxsize=32)
 def _four_step_tables(domain_pow: int, n1_pow: int, inverse: bool, device: torch.device) -> torch.Tensor:
     w = bn254.fr_root_of_unity(domain_pow)
     if inverse:
@@ -173,7 +168,7 @@ def four_step_ntt(
     if n1 % D or n2 % D:
         raise ValueError(f"mesh size {D} must divide both n1={n1} and n2={n2}")
     dev = x.device
-    plan1, plan2 = _local_plan(n1_pow, dev), _local_plan(n2_pow, dev)
+    plan1, plan2 = get_cuda_plan(n1_pow, dev), get_cuda_plan(n2_pow, dev)
     W = _four_step_tables(domain_pow, n1_pow, inverse, dev)
     batch = x.shape[:-2]
     a1, a2 = n1 // D, n2 // D
@@ -204,7 +199,7 @@ def sharded_ntt_batch(polys: torch.Tensor, *, domain_pow: int, mesh: Mesh, inver
     if B % mesh.size:
         raise ValueError(f"mesh size {mesh.size} must divide the batch {B}")
     per = B // mesh.size
-    plan = _local_plan(domain_pow, polys.device)
+    plan = get_cuda_plan(domain_pow, polys.device)
     local = polys[mesh.rank * per : (mesh.rank + 1) * per]
     out = plan.intt(local) if inverse else plan.ntt(local)
     return _all_gather(out.contiguous(), mesh).reshape(polys.shape)

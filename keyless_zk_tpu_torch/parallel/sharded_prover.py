@@ -12,11 +12,11 @@ processes (parallel/sharded.py), one card each:
   all-to-all each), a, b and c in one batched call per direction;
 - the coefficient evaluation and the pointwise field products stay local.
 
-`prove` is the single prover's pipeline with these `_msm` and
-`_h_scalars`. Every process holds the whole key, must pass the same
-witness, r and s (sampled ones would differ between processes), and
-returns the same proof; for the same r and s it equals the single
-prover's.
+`prove` and `prove_batch` are the single prover's pipeline with these
+`_msm` and `_h_scalars` (a batch's MSMs run one element at a time). Every
+process holds the whole key, must pass the same witnesses, r and s
+(sampled ones would differ between processes), and returns the same
+proofs; for the same r and s they equal the single prover's.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import device as devices
+from ..curves.jacobian import JacPoint
 from ..fields import torch_field as tf
 from ..fields.torch_field import FR
 from ..groth16.prover import Groth16Prover
@@ -44,6 +45,7 @@ class ShardedGroth16Prover(Groth16Prover):
         if self.domain_pow < 2 * (self.n_dev - 1).bit_length():
             raise ValueError("domain too small to four-step over this mesh")
         self._pad_tables()
+        self.coset = self.plan.coset_powers()
 
     def _pad_tables(self) -> None:
         d = self.n_dev
@@ -65,11 +67,10 @@ class ShardedGroth16Prover(Groth16Prover):
         self.points_c = pad_to(self.points_c)
         self.points_h = pad_to(self.points_h)
 
-    def _msm(self, table, scalars: torch.Tensor, curve, c: int | None = None):
-        pad = table[0].shape[0] - scalars.shape[0]
-        if pad:
-            scalars = torch.cat([scalars, scalars.new_zeros((pad, scalars.shape[1]))])
-        return sharded_msm(*table, scalars, curve=curve, mesh=self.mesh, c=c)
+    def _msm(self, table, scalars: torch.Tensor, curve, c: int | None = None) -> JacPoint:
+        scalars = torch.nn.functional.pad(scalars, (0, 0, 0, table[0].shape[0] - scalars.shape[-2]))
+        parts = [sharded_msm(*table, sc, curve=curve, mesh=self.mesh, c=c) for sc in scalars]
+        return JacPoint(*(torch.stack(cs) for cs in zip(*parts)))
 
     def _h_scalars(self, witness: torch.Tensor) -> torch.Tensor:
         n = self.pk.domain_size

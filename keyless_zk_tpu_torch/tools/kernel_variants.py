@@ -54,8 +54,7 @@ under build/ and built beside the shipped library:
 - K4's complete body ("K4c"; msm_scan.cu `scan_law`), shipped as the
   branch-free projective law on G1 (ec.cuh `madd_proj`) and madd_complete
   on G2 over `Fq2S` (field.cuh `mul_wide`, operands by value), rows read
-  where they are used: `pr11`, its first body (madd_complete in the
-  distinct body's loop, `scan_lane<F, true>`); `ring`, each next row
+  where they are used: `ring`, each next row
   copied into a two-slot ring in shared memory with 16-byte `cp.async`
   while the current step adds; `ring_off`, the ring's copy waited for at
   once (no overlap); `ring_1`, a ring of one slot, row t + 1 copied into
@@ -445,7 +444,6 @@ def _pow_bits(src: str) -> str:
 _COMPLETE_CALL = ("  using C = Complete<F>;\n"
                   "  scan_law<typename C::Coord, typename C::Law>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, "
                   "L, V, l);\n")
-_LANE_CALL = "  scan_lane<F, true>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);\n"
 _SCAN_LAW = "// One lane's walk with the law `Law`"
 _SCAN_LAW_SIGNATURE = "int32_t* __restrict__ tpt, long long L, long long V, long long l) {\n  typename Law::Acc acc"
 _INF_FIRST = "  bool inf_now = tinf[pw_now & kRowMask] != 0, inf_next = false;\n"
@@ -567,7 +565,7 @@ window_scan_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__
                    long long V) {
   long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (l >= V) return;
-  scan_lane<F, false>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
+  scan_lane<F>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l);
 }
 """
 _COMPLETE_KERNEL = "// F: the group's coordinate field (Fp<FqMod> or Fq2)\n"
@@ -592,7 +590,7 @@ def _distinct(coord_law: str, ring: bool = False):
     """The distinct body's kernel on `scan_law` with `coord_law`
     ("<coordinates>, <law>"), and with the ring."""
     call = f"  scan_law<{coord_law}>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, tk, tpt, L, V, l{', ring' * ring});\n"
-    kernel = (_CORE_LAW + _DISTINCT_KERNEL.replace("  scan_lane<F, false>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, "
+    kernel = (_CORE_LAW + _DISTINCT_KERNEL.replace("  scan_lane<F>(keys, pay, table, tinf, tbl, n_seg, hk, hpt, "
                                                    "tk, tpt, L, V, l);\n", "  extern __shared__ int4 ring[];\n" * ring
                                                    + call))
     edits = (_swap(_DISTINCT_KERNEL, ""), _swap(_COMPLETE_KERNEL, kernel + "\n" + _COMPLETE_KERNEL))
@@ -628,7 +626,6 @@ VARIANTS = {
     "ab_wide": (_AB_WIDE, ("K9",)),
     "ab_no_prefetch": (_AB_NO_PREFETCH, ("K9",)),
     "ab_prefetch_past": ([("eval_ab.cu", _swap(_AB_E_LIM, "const long long e_lim = total - n_rows;"))], ("K9",)),
-    "pr11": ([("msm_scan.cu", _swap(_COMPLETE_CALL, _LANE_CALL))], ("K4c",)),
     "ring": (_ring(), ("K4c",)),
     "ring_off": (_ring(_swap("cp_async_wait<1>();", "cp_async_wait<0>();")), ("K4c",)),
     "ring_1": (_RING_1, ("K4c",)),
@@ -647,7 +644,7 @@ VARIANTS = {
     "distinct_law": (_distinct("typename Complete<F>::Coord, typename Complete<F>::Law"), ("K4",)),
 }
 # variants whose scan outputs are other coordinates of the same points
-LAW_VARIANTS = ("pr11", "g1_jac", "g2_proj", "distinct_law")
+LAW_VARIANTS = ("g1_jac", "g2_proj", "distinct_law")
 
 
 def concerns(variant: str, label: str) -> bool:

@@ -1,12 +1,17 @@
-"""The port's BatchProver (parallel/batch_prover.py) against the JAX
-package's, on an in-repo setup: the chain circuit a == b^101 (domain 128)
-with pinned toxic values, as tests/test_parallel.py builds it.
+"""The port's BatchProver (parallel/batch_prover.py) and the pipeline it
+hands each batch (groth16/prover.py `Groth16Prover.prove_batch`) against
+the JAX package's, on an in-repo setup: the chain circuit a == b^101
+(domain 128) with pinned toxic values, as tests/test_parallel.py builds
+it.
 
 - `prove_batch` of three witnesses equals the JAX BatchProver's proofs
   with r and s drawn from the same sequence in both packages, and equals
-  the port's single prove of the same witness, r and s; every proof
-  verifies, and a proof checked against another element's public input
-  does not.
+  the port's single prove of the same witness, r and s, and its
+  `prove_batch` of that one witness; every proof verifies, and a proof
+  checked against another element's public input does not.
+- `prove` and a batch of two upload each witness through the prover
+  module's `_limbs` and blind each proof through its `blind`, the names
+  the benchmark's host spans wrap.
 - The queue: three threads through `prove()` that arrive while a batch is
   in flight coalesce into one batch of three (no padding to `max_batch`),
   each waiter gets its own witness's result, and an error reaches every
@@ -24,7 +29,7 @@ from keyless_zk_tpu.circuits.r1cs_file import r1cs_from_cs
 from keyless_zk_tpu.fields import bn254
 from keyless_zk_tpu.groth16 import Groth16Prover as JaxProver
 from keyless_zk_tpu.parallel import batch_prover as jax_batch_prover
-from keyless_zk_tpu_torch.groth16 import Groth16Prover, from_jax_proving_key, verify_groth16
+from keyless_zk_tpu_torch.groth16 import Groth16Prover, from_jax_proving_key, prover, verify_groth16
 from keyless_zk_tpu_torch.parallel import batch_prover
 
 torch.set_num_threads(1)
@@ -69,9 +74,9 @@ def test_prove_batch_equals_jax_and_single_prove(monkeypatch):
     finally:
         jax_bp.shutdown()
 
-    prover = Groth16Prover(from_jax_proving_key(res.pk), device="cpu")
-    _sequence(monkeypatch, batch_prover)
-    bp = batch_prover.BatchProver(prover, max_batch=4)
+    port = Groth16Prover(from_jax_proving_key(res.pk), device="cpu")
+    _sequence(monkeypatch, prover)
+    bp = batch_prover.BatchProver(port, max_batch=4)
     try:
         got = bp.prove_batch(wits)
     finally:
@@ -80,11 +85,31 @@ def test_prove_batch_equals_jax_and_single_prove(monkeypatch):
     assert bp.last_h.shape == (len(BASES), 128, 16)
 
     # element 1 drew r = 9, s = 10
-    single = prover.prove(wits[1], r=9, s=10)
+    single = port.prove(wits[1], r=9, s=10)
     assert single.to_json_dict() == got[1].to_json_dict()
+    assert port.prove_batch([wits[1]], [(9, 10)])[0].to_json_dict() == got[1].to_json_dict()
     for proof, pub in zip(got, publics):
         assert verify_groth16(res.vk, pub, proof.to_json_dict())
     assert not verify_groth16(res.vk, publics[1], got[0].to_json_dict())
+
+
+def test_pipeline_uploads_and_blinds_through_the_module_names(monkeypatch):
+    res, wits, _ = chain_setup()
+    port = Groth16Prover(from_jax_proving_key(res.pk), device="cpu")
+    calls = []
+    for name in ("_limbs", "blind"):
+        real = getattr(prover, name)
+        monkeypatch.setattr(prover, name, lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
+    port.prove(wits[0])
+    bp = batch_prover.BatchProver(port, max_batch=2)
+    try:
+        proofs = bp.prove_batch(wits[1:])
+    finally:
+        bp.shutdown()
+    assert calls == ["_limbs", "blind"] + ["_limbs"] * 2 + ["blind"] * 2
+    assert len(proofs) == 2 and set(bp.phase_ms) >= {"blind"}
+    with pytest.raises(ValueError, match="1 \\(r, s\\) pairs for 2 witnesses"):
+        port.prove_batch(wits[1:], [(9, 10)])
 
 
 class _Gate:

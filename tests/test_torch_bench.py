@@ -25,7 +25,7 @@ from keyless_zk_tpu_torch.curves.jacobian import G1_CURVE, G2_CURVE, JacPoint
 from keyless_zk_tpu_torch.fields.limbs import ints_to_limbs
 from keyless_zk_tpu_torch.fields.torch_field import FR
 from keyless_zk_tpu_torch.fields import torch_field as tf
-from keyless_zk_tpu_torch.groth16.prover import _pick_plan
+from keyless_zk_tpu_torch.ops.cuda_ntt import get_cuda_plan
 from keyless_zk_tpu_torch.ops.msm import msm
 from keyless_zk_tpu_torch.ops.testgen import random_dlogs, random_points, random_scalars
 from keyless_zk_tpu_torch.service.types import success_response
@@ -143,7 +143,7 @@ def test_check_madd():
 
 
 def test_check_ntt():
-    plan = _pick_plan(5, CPU)
+    plan = get_cuda_plan(5, CPU)
     x = random_scalars(32, seed=3, device="cpu")
     y = plan.ntt(x)
     bench.check_ntt(plan, x, y, n_rows=32)

@@ -142,9 +142,10 @@ def test_keyless_shaped_batch_proof_equals_blind_plain_and_the_oracle(monkeypatc
                                 n_coefs=100, device="cpu")
     drawn = [R - 1, 5, 0, 123456789]  # r then s, per proof
     it = iter(drawn)
-    monkeypatch.setattr(batch_prover, "_sample_fr", lambda: next(it))
+    monkeypatch.setattr(prover, "_sample_fr", lambda: next(it))
     seen = []
-    monkeypatch.setattr(batch_prover, "blind", lambda *a: seen.append(a) or prover.blind(*a))
+    real = prover.blind
+    monkeypatch.setattr(prover, "blind", lambda *a: seen.append(a) or real(*a))
     bp = batch_prover.BatchProver(Groth16Prover(key.pk, device="cpu"), max_batch=2)
     try:
         got = bp.prove_batch([key.witness, key.witness])

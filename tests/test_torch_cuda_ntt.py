@@ -24,6 +24,7 @@ from keyless_zk_tpu_torch.fields.limbs import NUM_LIMBS, limbs_to_ints
 from keyless_zk_tpu_torch.groth16 import Groth16Prover, from_jax_proving_key
 from keyless_zk_tpu_torch.ops import cuda_eval_ab, cuda_ntt
 from keyless_zk_tpu_torch.ops.cuda_ntt import IN_AB, IN_LIMBS, IN_WORDS, OUT_H, OUT_LIMBS, OUT_WORDS
+from keyless_zk_tpu_torch.ops.ntt import NTTPlan
 from test_torch_eval_ab import DOMAIN, planted_key
 from torch_fixtures import limbs_t, rand_ints
 
@@ -109,17 +110,25 @@ def planted():
 def test_h_chain_matches_jax(planted):
     """The fused chain (c = a*b in the first load, n^-1 and the coset in the
     iNTT's last store, h = A*B - C out of Montgomery form in the NTT's last
-    store) at one, two and three passes, through the prover, against the
-    JAX package's h scalars; the butterfly plan's unfused chain agrees."""
+    store) at one, two and three passes, through the prover, whose plan is
+    K10's on the CPU too, against the JAX package's h scalars; the
+    butterfly plan's unfused chain agrees."""
     from keyless_zk_tpu.groth16.prover import Groth16Prover as JaxProver
 
     pk, witness, prover = planted
     want = np.asarray(JaxProver(pk)._h_scalars(jnp.asarray(witness))).astype(np.int64)
     w = torch.from_numpy(witness.astype(np.int32))
-    butterfly = prover.plan
-    assert type(butterfly).__name__ == "NTTPlan"
+    k10 = prover.plan
+    assert isinstance(k10, cuda_ntt.CudaNTTPlan)
     assert np.array_equal(prover._h_scalars(w).numpy().astype(np.int64), want)
     domain_pow = DOMAIN.bit_length() - 1
+    butterfly = NTTPlan(domain_pow, device="cpu")
+    ab = prover._eval_ab(w)
+    a, b = ab[:DOMAIN], ab[DOMAIN:]
+    abc = butterfly.intt(torch.stack([a, b, tf.mont_mul(a, b, tf.FR)]))
+    abc = butterfly.ntt(tf.mont_mul(abc, butterfly.coset_powers(), tf.FR))
+    h = tf.from_mont(tf.sub(tf.mont_mul(abc[0], abc[1], tf.FR), abc[2], tf.FR), tf.FR)
+    assert np.array_equal(h.numpy().astype(np.int64), want)
     try:
         for max_log, passes in ((11, 1), (3, 2), (2, 3)):
             prover.plan = cuda_ntt.CudaNTTPlan(domain_pow, device="cpu", max_log=max_log)
@@ -127,7 +136,7 @@ def test_h_chain_matches_jax(planted):
             assert torch.equal(prover.plan.coset_powers(), butterfly.coset_powers())
             assert np.array_equal(prover._h_scalars(w).numpy().astype(np.int64), want)
     finally:
-        prover.plan = butterfly
+        prover.plan = k10
 
 
 def test_h_chain_planted_edges():

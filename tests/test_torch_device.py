@@ -1,8 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: without a card (CUDA reported absent), each one called with its
 default device raises instead of falling back to the CPU, and each one runs
-when asked for the CPU. The prover picks its NTT plan by device: K10's plan
-on a card for every domain, the butterfly NTT on the CPU."""
+when asked for the CPU. The prover takes K10's NTT plan on every device:
+the kernel's passes on a card, their plain versions on the CPU."""
 
 import pytest
 import torch
@@ -65,12 +65,22 @@ def test_prover_refuses_a_missing_card_and_runs_on_the_cpu(no_card):
 
 
 def test_plan_is_picked_by_device(monkeypatch):
+    key = testgen.synthetic_key(1, device="cpu", **SMALL_KEY)
+    plan = Groth16Prover(key.pk, device="cpu").plan
+    assert isinstance(plan, cuda_ntt.CudaNTTPlan)
+    assert (plan.domain_pow, plan.device) == (3, torch.device("cpu"))
+
+    class Picked(Exception):
+        pass
+
     picked = []
-    monkeypatch.setattr(prover, "get_cuda_plan", lambda dp, dev: picked.append((dp, dev)) or "k10")
-    monkeypatch.setattr(prover, "NTTPlan", lambda dp, dev: ("butterfly", dp, dev))
-    card = torch.device("cuda", 0)
-    for dp in (21, 7, 6, 1):
-        assert prover._pick_plan(dp, card) == "k10"
-    assert picked == [(21, card), (7, card), (6, card), (1, card)]
-    cpu = torch.device("cpu")
-    assert prover._pick_plan(21, cpu) == ("butterfly", 21, cpu)
+
+    def stub(dp, dev):
+        picked.append((dp, dev))
+        raise Picked  # the plan is the first thing the prover puts on its device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(prover, "get_cuda_plan", stub)
+    with pytest.raises(Picked):
+        Groth16Prover(key.pk, device="cuda")
+    assert picked == [(3, torch.device("cuda"))]

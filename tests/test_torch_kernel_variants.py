@@ -91,20 +91,18 @@ def test_add_and_pow_variants_edit_what_they_name():
 
 
 def test_scan_variants_edit_what_they_name():
-    """K4's variants: `pr11` puts the complete kernel back on the distinct
-    body's loop with madd_complete; the ring variants copy rows through
-    shared memory (`ring_1` with one slot, half the bytes; `ring_off` waits
-    at once); the law and product variants swap one type; the distinct
-    variants move the distinct kernel onto `scan_law` and leave the
-    complete kernel as shipped. The complete body's variants run on K4c
-    cases, the distinct body's on K4 ones."""
+    """K4's variants: the ring variants copy rows through shared memory
+    (`ring_1` with one slot, half the bytes; `ring_off` waits at once); the
+    law and product variants swap one type; the distinct variants move the
+    distinct kernel onto `scan_law` and leave the complete kernel as
+    shipped. The complete body's variants run on K4c cases, the distinct
+    body's on K4 ones."""
     shipped = (_build.CSRC / "msm_scan.cu").read_text()
-    assert "cp.async.cg" not in shipped and "scan_lane<F, true>(keys" not in shipped
+    assert "cp.async.cg" not in shipped
 
     def scan(name):
         return _edited(name)["msm_scan.cu"][1]
 
-    assert "  scan_lane<F, true>(keys, pay" in scan("pr11") and "scan_law<typename C::Coord" not in scan("pr11")
     ring = scan("ring")
     assert "cp.async.cg.shared.global" in ring and "cp_async_wait<1>();" in ring
     assert "extern __shared__ int4 ring[];" in ring and "kernel<<<blocks, threads, smem, s>>>(" in ring
@@ -122,10 +120,10 @@ def test_scan_variants_edit_what_they_name():
                        ("distinct_ring", "scan_law<F, CoreLaw<F>>(keys"),
                        ("distinct_law", "scan_law<typename Complete<F>::Coord, typename Complete<F>::Law>(keys")):
         src = scan(name)
-        assert call in src and "scan_lane<F, false>" not in src
+        assert call in src and "scan_lane<F>(keys" not in src
         assert src.count("window_scan_kernel(") == 1
     assert "ring_bytes<F>()" in scan("distinct_ring")
-    for name in ("pr11", "ring", "g1_jac", "g2_proj"):
+    for name in ("ring", "g1_jac", "g2_proj"):
         assert kv.concerns(name, "K4c window_scan_complete fq L=63 V=33792 over 81940 buckets, planted")
         assert not kv.concerns(name, "K4 window_scan fq L=993 V=33792 over 16 x 32769 buckets, random")
     for name in ("distinct_loop", "distinct_ring", "distinct_law"):

@@ -76,7 +76,7 @@ key = testgen.synthetic_key(
 )
 prover = Groth16Prover(key.pk, device="cpu")
 proof = prover.prove(key.witness, r=11, s=13)
-want = testgen.expected_proof(key, tf.decode_ints(prover.last_h, tf.FR), 11, 13)
+want = testgen.expected_proof(key, tf.decode_ints(prover.last_h[0], tf.FR), 11, 13)
 assert (proof.pi_a, proof.pi_b, proof.pi_c) == want, "proof differs from the dlog oracle"
 ''' + DONE
 

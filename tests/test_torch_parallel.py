@@ -12,7 +12,9 @@ Two processes are spawned on 127.0.0.1 with a free port
   all-to-all) and `sharded_ntt_batch` of two 2^6 polynomials: equal to the
   JAX package's `NTTPlan`, bit for bit;
 - `ShardedGroth16Prover.prove(w, 7, 8)` on the chain circuit a == b^101
-  (domain 128): equal to the port's single prover, and verifying.
+  (domain 128): equal to the port's single prover, and verifying; its
+  `prove_batch([w, w], rs=[(7, 8), (9, 10)])` (sharded MSMs, one element
+  at a time): equal to the single prover's proofs with the same r and s.
 
 Without an address, `distributed.initialize()` returns False and the mesh
 is one process."""
@@ -72,12 +74,14 @@ def ranks(tmp_path_factory):
     torch.save(inputs, d / "inputs.pt")
     ctx = mp.spawn(torch_parallel_worker.run, args=(WORLD, _free_port(), str(d / "inputs.pt"), str(d / "out")),
                    nprocs=WORLD, join=False)
-    single = Groth16Prover(pk, device="cpu").prove(wits[0], r=7, s=8).to_json_dict()
+    port = Groth16Prover(pk, device="cpu")
+    single = port.prove(wits[0], r=7, s=8).to_json_dict()
+    single_9_10 = port.prove(wits[0], r=9, s=10).to_json_dict()
     while not ctx.join(timeout=600):
         pass
     outs = [torch.load(f"{d / 'out'}.{r}", weights_only=False) for r in range(WORLD)]
-    return {"pts": pts, "sc": sc, "ntt": ntt_in, "polys": polys, "single": single, "vk": res.vk,
-            "public": publics[0]}, outs
+    return {"pts": pts, "sc": sc, "ntt": ntt_in, "polys": polys, "single": single, "single_9_10": single_9_10,
+            "vk": res.vk, "public": publics[0]}, outs
 
 
 def test_sharded_msm_matches_host_and_jax(ranks):
@@ -118,6 +122,12 @@ def test_sharded_prover_equals_single_prover(ranks):
         assert o["proof"] == case["single"]
     assert verify_groth16(case["vk"], case["public"], case["single"])
     assert [o["slice"] for o in outs] == [(0, 3), (3, 5)]
+
+
+def test_sharded_prover_proves_a_batch(ranks):
+    case, outs = ranks
+    for o in outs:
+        assert o["batch"] == [case["single"], case["single_9_10"]]
 
 
 def test_single_process_fallback():

@@ -1,5 +1,6 @@
 """The prove pipeline's spans (utils/logging.py `Span`, service/
-prover_state.py `handle_prove`, parallel/batch_prover.py) and request ids
+prover_state.py `handle_prove`, parallel/batch_prover.py, groth16/
+prover.py `prove_batch`) and request ids
 (service/handler.py):
 
 - the wait for the prover's lock is a span apart from the proof, and the
@@ -17,6 +18,7 @@ test_torch_batch_prover.py (a counting prover, a witness program that
 skips the circuit, a queue gate); the pipeline around them is the real one,
 on test JWTs from the port's seeded generator. No case sleeps over 0.2 s."""
 
+import functools
 import json
 import threading
 import time
@@ -26,9 +28,9 @@ import pytest
 import torch
 
 from keyless_zk_tpu_torch.curves.jacobian import JacPoint
-from keyless_zk_tpu_torch.groth16.prover import Proof
+from keyless_zk_tpu_torch.groth16 import prover as prover_mod
+from keyless_zk_tpu_torch.groth16.prover import Groth16Prover, Proof
 from keyless_zk_tpu_torch.input_processing.testjwt import make_test_jwt, prove_request
-from keyless_zk_tpu_torch.parallel import batch_prover
 from keyless_zk_tpu_torch.parallel.batch_prover import BatchProver
 from keyless_zk_tpu_torch.service import handler, metrics, prover_state
 from keyless_zk_tpu_torch.service.jwk import RsaJwk
@@ -156,21 +158,25 @@ def test_cpu_ms_counts_the_threads_work_not_its_sleep():
 
 
 def device_stand_ins(monkeypatch):
-    """prove_batch's device steps as stand-ins, so that its own control
-    flow and its host blinding tail run in milliseconds; each blinding
-    takes 10 ms and returns the r and s it was given."""
-    monkeypatch.setattr(batch_prover, "check_witness_limbs", lambda pk, w: torch.zeros(4, dtype=torch.int32))
-    monkeypatch.setattr(batch_prover, "_limbs", lambda wl, device: wl)
-    monkeypatch.setattr(batch_prover, "msm_batch",
+    """A prover whose device steps are stand-ins and whose `prove_batch` is
+    the real pipeline (Groth16Prover.prove_batch), so that the pipeline's
+    own control flow and its host blinding tail run in milliseconds; each
+    blinding takes 10 ms and returns the r and s it was given."""
+    monkeypatch.setattr(prover_mod, "check_witness_limbs", lambda pk, w: torch.zeros(4, dtype=torch.int32))
+    monkeypatch.setattr(prover_mod, "_limbs", lambda wl, device: wl)
+    monkeypatch.setattr(prover_mod, "msm_batch",
                         lambda *a, **k: JacPoint(*(torch.zeros(a[-1].shape[0]) for _ in range(3))))
     decode = types.SimpleNamespace(decode_jacobian=lambda p: [None] * p.x.shape[0])
-    monkeypatch.setattr(batch_prover, "G1_CURVE", decode)
-    monkeypatch.setattr(batch_prover, "G2_CURVE", decode)
-    monkeypatch.setattr(batch_prover, "blind", lambda pk, a, b1, b2, c, h, r, s: time.sleep(0.01) or (r, s))
-    return types.SimpleNamespace(pk=None, device=torch.device("cpu"), _h_scalars=lambda w: w,
-                                 _merge_scalars=lambda w, m: w,
-                                 **{f"_merge_{t}": None for t in ("a", "b1", "b2", "c", "h")},
-                                 **{f"points_{t}": () for t in ("a", "b1", "b2", "c", "h")})
+    monkeypatch.setattr(prover_mod, "G1_CURVE", decode)
+    monkeypatch.setattr(prover_mod, "G2_CURVE", decode)
+    monkeypatch.setattr(prover_mod, "blind", lambda pk, a, b1, b2, c, h, r, s: time.sleep(0.01) or (r, s))
+    stand_in = types.SimpleNamespace(pk=None, device=torch.device("cpu"), _h_scalars=lambda w: w,
+                                     _merge_scalars=lambda w, m: w,
+                                     **{f"_merge_{t}": None for t in ("a", "b1", "b2", "c", "h")},
+                                     **{f"points_{t}": () for t in ("a", "b1", "b2", "c", "h")})
+    stand_in._msm = functools.partial(Groth16Prover._msm, stand_in)
+    stand_in.prove_batch = functools.partial(Groth16Prover.prove_batch, stand_in)
+    return stand_in
 
 
 def test_batch_shares_phase_ms_with_blind_and_each_proof_has_its_queue_wait(monkeypatch):

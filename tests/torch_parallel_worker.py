@@ -1,6 +1,6 @@
 """One rank of tests/test_torch_parallel.py: joins a gloo group on
 127.0.0.1 through the port's `distributed.initialize`, runs the sharded
-kernels and the sharded prover on the inputs the test wrote, and saves
+kernels and the sharded prover (one proof and a batch) on the inputs the test wrote, and saves
 what it computed. Imports the port only (no JAX)."""
 
 import torch
@@ -28,7 +28,9 @@ def run(rank: int, world: int, port: int, inputs: str, outputs: str) -> None:
         out["intt"] = four_step_ntt(x, domain_pow=dp, mesh=mesh, inverse=True)
         out["ntt_batch"] = sharded_ntt_batch(case["polys"], domain_pow=dp, mesh=mesh)
         pk, wit = case["prover"]
-        out["proof"] = ShardedGroth16Prover(pk, mesh, device="cpu").prove(wit, r=7, s=8).to_json_dict()
+        sharded = ShardedGroth16Prover(pk, mesh, device="cpu")
+        out["proof"] = sharded.prove(wit, r=7, s=8).to_json_dict()
+        out["batch"] = [p.to_json_dict() for p in sharded.prove_batch([wit, wit], rs=[(7, 8), (9, 10)])]
         torch.save(out, f"{outputs}.{rank}")
     finally:
         dist.destroy_process_group()
